@@ -1,4 +1,4 @@
-"""Long-horizon f32-vs-f64 drift curve (VERDICT r3 item 4).
+"""Long-horizon f32-vs-f64 drift curve.
 
 The reference's headline artifact is a 1000-step double-precision corpus
 (`res/solution_step0001.dat`, params `src/solve_newton-petsc.c:663-667`);
@@ -116,8 +116,7 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--dt", type=float, default=1e-3)
     args = p.parse_args(argv)
-    # Always CPU + x64: the f64 ground-truth leg NEEDS real double
-    # precision, which the TPU does not execute natively.
+    # Always CPU + x64: a long f64 ground-truth leg is a host-side job.
     import jax
 
     jax.config.update("jax_platforms", "cpu")

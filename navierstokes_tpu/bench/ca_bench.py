@@ -13,7 +13,6 @@ ca_gmres on the prepared exact-Jacobian operator two ways:
   (convergence-quality comparison — s-step bases lose orthogonality faster).
 
 Usage: python -m navierstokes_tpu.bench.ca_bench [--matrix-id 6]
-Feeds benchlogs/ca_gmres.txt.
 """
 import argparse
 import dataclasses

@@ -19,7 +19,7 @@ import numpy as np
 
 
 def main(argv=None):
-    # Host tool: run on CPU with full float64 regardless of ambient TPU env.
+    # Host tool: run on CPU with full float64 regardless of the accelerator.
     import jax
 
     jax.config.update("jax_platforms", "cpu")

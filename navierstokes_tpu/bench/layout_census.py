@@ -1,17 +1,14 @@
 """Operator-layout storage census over the scaling-series matrices.
 
 Answers the reference's "second block size" question (`baij8_avx512.c`:
-does a different block layout beat the default?) the TPU way: on a v5e the
-SpMV is HBM-bandwidth-bound (see benchlogs/log_SPMV.txt — the pre-tiled
-Pallas DIA kernel streams the operator at 683-686 GB/s, i.e. the roofline),
+does a different block layout beat the default?) the bandwidth way: the SpMV
+is memory-bandwidth-bound (a pure stream with no reuse beyond the x window),
 so a layout can only win by moving FEWER BYTES while staying gather-free.
 This census computes, from the real block patterns of matrices 1-10, the
 bytes each candidate layout must stream per SpMV:
 
   raw/BAIJ4   nnzb * 16 values            — compact, but needs per-block
-                                            column gathers (block-ELL
-                                            measured 12 GF/s on v5e: TPU
-                                            dynamic-gather serializes)
+                                            column gathers (block-ELL)
   scalar-DIA  K * ndof values             — the shipped layout: zero
                                             gathers, statically shifted
                                             contiguous slices
@@ -29,7 +26,7 @@ block-compact layout, and the census quantifies exactly that.
 Usage:
     python -m navierstokes_tpu.bench.layout_census [--max-id 8]
 
-Feeds `benchlogs/layout_census.txt`; conclusion recorded in PARITY.md #11.
+Conclusion recorded in PARITY.md #11.
 """
 
 from __future__ import annotations

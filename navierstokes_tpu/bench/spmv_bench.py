@@ -47,8 +47,8 @@ def run_one(matrix_id: int, kernel: str, dtype_str: str, disc=None,
     nnz = pat.nnz
     print(f"Matrix loaded: {disc.ndof} rows, {nnz} nonzeros", flush=True)
 
-    # DIA-direct assembly scales to the full series (block-form arrays get
-    # tile-padded 32-64x in HBM and OOM beyond ~500k rows).
+    # DIA-direct assembly scales to the full series (the block-form oracle
+    # arrays are built only up to ~200k rows).
     from navierstokes_tpu.fem.assembly import assemble_dia_values
 
     dummy_UL = jnp.zeros((disc.ne, 3, 4), dtype=dtype)
@@ -92,8 +92,7 @@ def run_one(matrix_id: int, kernel: str, dtype_str: str, disc=None,
     # Variant entries are SINGLE-APPLY steppers (u, *operands) -> A u; the
     # timing site chains them k times (and inserts the ortho hook between
     # applications for 2SpMV+ortho).  `extra` may carry layout converters
-    # ("x"/"post") and "full": True for kernels that compute A^k x in one
-    # call (the fused Pallas sweeps).
+    # ("x"/"post").
     variants = []
     if with_blocks:
         variants += [
@@ -110,104 +109,37 @@ def run_one(matrix_id: int, kernel: str, dtype_str: str, disc=None,
          lambda u, data: spmv_dia(offsets, data, u).astype(dtype),
          (dia_bf16,), {}),
     ]
-    if dtype == jnp.float32:
-        # The stable hot-path kernel (XLA's DIA lowering is bimodal across
-        # compilations — see CLAUDE.md); tile heuristic as in the model.
-        from navierstokes_tpu.ops.pallas_dia import pretile_dia, spmv_dia_pallas
+    # Component-plane (by-component-ordering) layout: 16 plane couplings x
+    # N_D node diagonals = 0.74x the scalar-DIA bytes (bench/layout_census)
+    # — the BAIJ8 "second block layout" experiment, won on bandwidth
+    # instead of register reuse.  Timed in its native layout (a plane-layout
+    # solver converts only at step boundaries); correctness checked through
+    # the conversions.
+    from navierstokes_tpu.ops.plane_dia import (
+        extract_planes,
+        from_planes,
+        node_offsets_from_scalar,
+        spmv_planes,
+        to_planes,
+    )
 
-        tile = 8192 if disc.ndof <= 150_000 else 4096
-        dia_3d = pretile_dia(dia_data, disc.ndof, tile=tile)
-        variants += [
-            (f"DIA Pallas pretiled t={tile}",
-             lambda u, d3: spmv_dia_pallas(offsets, d3, u, n=disc.ndof),
-             (dia_3d,), {}),
-        ]
-        # Component-plane (by-component-ordering) layout: 16 plane couplings
-        # x N_D node diagonals = 0.74x the scalar-DIA bytes (see
-        # benchlogs/layout_census.txt) — the BAIJ8 "second block layout"
-        # experiment, won on bandwidth instead of register reuse.  Timed in
-        # its native layout (a plane-layout solver converts only at step
-        # boundaries); correctness checked through the conversions.
-        from navierstokes_tpu.ops.plane_dia import (
-            extract_planes,
-            from_planes,
-            node_offsets_from_scalar,
-            pretile_planes,
-            spmv_plane_pallas,
-            to_planes,
-        )
-
-        noffs = node_offsets_from_scalar(offsets)
-        nb = disc.ndof // 4
-        plane_tile = tile
-        plane_4d = pretile_planes(
-            extract_planes(offsets, dia_data, nb, node_offsets=noffs),
-            nb, tile=plane_tile,
-        )
-        nbp = plane_4d.shape[0] * plane_tile
-        variants += [
-            (f"DIA plane-major t={plane_tile} (N_D={len(noffs)})",
-             lambda u, d4: spmv_plane_pallas(noffs, d4, u, nb=nb),
-             (plane_4d,),
-             {"x": lambda v: to_planes(v, nb, nbp),
-              "post": lambda v: from_planes(v, nb, nbp)}),
-        ]
-        if kernel in ("spm2v", "spm3v", "spm4v"):
-            # The fused single-sweep A^p x (`mpk/SpM2V.cpp` /
-            # `mpk/SpMVmulti0.cpp:132-155,191-221` analogs): reads A
-            # (T + 2(p-1)h)/T times instead of p — wins iff the bandwidth
-            # h is small against the tile (the reference's cache-size
-            # crossover, `mpk/log/log_SPM2V.txt`, re-expressed in VMEM).
-            from navierstokes_tpu.ops.mpk_pallas import (
-                overlap_ratio,
-                pretile_dia_overlap,
-                spmpv_dia_pallas,
-            )
-
-            ratio = overlap_ratio(disc.ndof, offsets, tile=tile, power=k)
-            h = max(max(abs(d) for d in offsets), 1)
-            H = (k - 1) * h
-            e_pad = -(-(tile + 2 * H) // 128) * 128
-            ov_bytes = (-(-disc.ndof // tile)) * len(offsets) * e_pad * 4
-            # VMEM budget: the (K, e_pad) operator block is double-buffered
-            # by the pipeline, plus the 2-slot x-window scratch, the
-            # double-buffered output tile, and ~(k+2) live e_pad f32
-            # intermediates.  ~16 MB hard limit; keep 1 MB headroom.
-            granule = 1024
-            win = -(-(2 * h + e_pad + granule) // granule) * granule
-            vmem = (2 * len(offsets) * e_pad + 2 * win + 2 * tile
-                    + (k + 2) * e_pad) * 4
-            if ov_bytes <= 1.5e9 and vmem <= 15e6:
-                dov = pretile_dia_overlap(dia_data, disc.ndof, tile=tile,
-                                          halo=H)
-                variants += [
-                    (f"DIA Pallas FUSED t={tile} "
-                     f"({ratio:.2f} passes over A vs {k})",
-                     lambda v, d: spmpv_dia_pallas(offsets, d, v,
-                                                   n=disc.ndof, power=k,
-                                                   tile=tile),
-                     (dov,), {"full": True}),
-                ]
-            else:
-                # no silent caps: at large bandwidth the overlap-pretiled
-                # operator explodes ((T+2(p-1)h)/T passes stored explicitly)
-                # or its double-buffered block overflows the ~16 MB VMEM.
-                why = (f"operator would be {ov_bytes / 1e9:.1f} GB"
-                       if ov_bytes > 1.5e9 else
-                       f"kernel needs ~{vmem / 1e6:.1f} MB VMEM")
-                print(
-                    f"{label} DIA Pallas FUSED skipped: {why} "
-                    f"({ratio:.2f} passes over A vs {k} — fusion cannot "
-                    f"win at this bandwidth/tile)",
-                    flush=True,
-                )
+    noffs = node_offsets_from_scalar(offsets)
+    nb = disc.ndof // 4
+    planes = extract_planes(offsets, dia_data, nb, node_offsets=noffs)
+    variants += [
+        (f"DIA plane-major (N_D={len(noffs)})",
+         lambda u, d4: spmv_planes(noffs, d4, u),
+         (planes,),
+         {"x": lambda v: to_planes(v, nb, nb),
+          "post": lambda v: from_planes(v, nb, nb)}),
+    ]
 
     x = jnp.asarray(
         np.random.default_rng(0).standard_normal(disc.ndof), dtype=dtype
     )
     # Per-variant operator footprint next to each timing — the
-    # `src/benchmark_spmv.c:167-207` memory-estimate analog; on TPU the
-    # bytes a layout streams per SpMV are the roofline.
+    # `src/benchmark_spmv.c:167-207` memory-estimate analog; the bytes a
+    # layout streams per SpMV bound its time.
     raw = nnz * jnp.dtype(dtype).itemsize
     y_ref = None
     t_ref = None
@@ -224,13 +156,10 @@ def run_one(matrix_id: int, kernel: str, dtype_str: str, disc=None,
     for name, fn1, operands, extra in variants:
         # extra: {"x": to-native-layout, "post": back} for variants whose
         # kernel runs in a different vector layout (timed native — the
-        # conversions happen once per solve, not per SpMV); "full": True
-        # for one-call A^k x kernels.
+        # conversions happen once per solve, not per SpMV).
         to_l = extra.get("x", lambda v: v)
         post = extra.get("post", lambda v: v)
-        if extra.get("full"):
-            fn = fn1
-        elif V_nat is not None:
+        if V_nat is not None:
             Vb = jax.vmap(to_l)(V_nat)
 
             def fn(v, Vb, *ops, _s=fn1):

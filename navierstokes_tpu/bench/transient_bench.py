@@ -2,9 +2,8 @@
 
 The solver-level analog of `spmv_bench`: per-step wall time of the jitted
 Newton step with the run.py f32 defaults (or any knob overridden on the
-command line), with per-phase setup timing.  Feeds
-`benchlogs/transient_scaling.txt` — the reference's corresponding artifact
-is the completed mmesh run behind `res/solution_step*.dat` plus the
+command line), with per-phase setup timing.  The reference's corresponding
+artifact is the completed mmesh run behind `res/solution_step*.dat` plus the
 per-phase `-log_view` output (`src/solve_newton.c:1290-1310`).
 
 Usage:
@@ -49,9 +48,8 @@ def run_one(matrix_id: int, steps: int, overrides: dict,
 
     # coarse_agg=None = the measured per-size auto schedule (config.
     # auto_coarse_agg: 48/128/256).  The base pins preconditioner=
-    # "two_level" — the historical flagship — so the 'defaults' rows of
-    # benchlogs/transient_scaling.txt stay comparable across rounds; the
-    # PRODUCT default is preconditioner="auto" (run.default_f32_krylov),
+    # "two_level" — the historical flagship — so its rows stay comparable;
+    # the PRODUCT default is preconditioner="auto" (run.default_f32_krylov),
     # whose per-size winners are measured as overrides against this base.
     base = SolverConfig(rtol=1e-5, atol=1e-6, maxiter=1000,
                         neumann_order=0, preconditioner="two_level",
@@ -106,7 +104,7 @@ def run_one(matrix_id: int, steps: int, overrides: dict,
     # initial guess and u_old, exactly as model.run() does.  (An earlier
     # version passed the state from two steps back as u_old, which re-solved
     # the already-converged interval on alternating calls — halving apparent
-    # step cost.  See benchlogs/transient_scaling.txt round-3 note.)
+    # step cost.)
     u_cur, du_cur = u1, du1
     per_step = []          # device scalars; fetched after the final sync
     t0 = time.perf_counter()
@@ -123,8 +121,7 @@ def run_one(matrix_id: int, steps: int, overrides: dict,
     # step_ms is a MEAN over steps whose iteration counts can differ a lot
     # (the first post-compile steps are still relaxing the Stokes initial
     # condition); ms/iter must divide by the MEAN lin count, not the last
-    # step's — dividing 6.5 s by the last step's 358 iters at matrix 10
-    # once produced a phantom "18 ms/iter" (see transient_scaling.txt).
+    # step's, which can be far from the mean.
     log("per-step (newton, lin): " + " ".join(map(str, counts))
         + f"; mean lin {mean_lin:.1f}"
         + (f"; ms/lin-iter {step_ms / mean_lin:.2f}" if mean_lin else ""))
@@ -164,9 +161,8 @@ def main(argv=None):
                    choices=["lower", "full"])
     p.add_argument("--restart", type=int, default=None)
     p.add_argument("--spmv", default=None,
-                   choices=["auto", "xla", "pallas", "plane"])
+                   choices=["auto", "xla", "plane"])
     p.add_argument("--neumann-order", type=int, default=None)
-    p.add_argument("--cgs2", default=None, choices=["xla", "pallas", "pallas_comp"])
     p.add_argument("--deflation-k", type=int, default=None)
     p.add_argument("--deflation-arnoldi", type=int, default=None)
     p.add_argument("--method", default=None,
@@ -207,7 +203,6 @@ def main(argv=None):
             ("restart", args.restart),
             ("spmv", args.spmv),
             ("neumann_order", args.neumann_order),
-            ("cgs2", args.cgs2),
             ("method", args.method),
         ) if v is not None
     }

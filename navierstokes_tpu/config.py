@@ -42,20 +42,18 @@ class SolverConfig:
                                           # schedule (auto_preconditioner),
                                           # resolved at solver construction
                                           # — the run.py flagship default.
-    # two_level (coarse_agg=48) is the measured f32 CLI default on TPU:
-    # 101.6 ms/step at 121k DoF (53 GMRES iters) vs 134.3 ms / 226 iters
-    # for block_jacobi — run.py sets it explicitly; this dataclass default
-    # stays block_jacobi because it needs no aggregation parameters and is
-    # the right pick for small/CPU runs.
+    # The f32 CLI default is preconditioner="auto" (run.default_f32_krylov);
+    # this dataclass default stays block_jacobi because it needs no
+    # aggregation parameters and is the right pick for small/CPU runs.
     neumann_order: int = 2      # Neumann-series boost of block-Jacobi (0 = plain)
                                 # NOTE: the Neumann series need not converge on
                                 # the indefinite saddle-point system (odd orders
                                 # can diverge); prefer "two_level" for strength
     coarse_agg: Optional[int] = None  # nodes per aggregate (two_level).
-                                # None = auto: the measured size schedule
+                                # None = auto: the swept size schedule
                                 # (48 @<=150k rows, 128 @<=600k, 256 above —
-                                # benchlogs/transient_scaling.txt post-fix
-                                # sweeps), resolved against the mesh at
+                                # config.auto_coarse_agg), resolved
+                                # against the mesh at
                                 # solver construction (config.
                                 # resolve_coarse_defaults); pass an int to
                                 # pin it (the CLI --coarse-agg override).
@@ -92,8 +90,7 @@ class SolverConfig:
                                 # more iterations in f64 at matrix 3 and
                                 # outright stagnation at 117k+ for every
                                 # omega tried (0.5/0.6667/1.0 — classic SA
-                                # assumes SPD; see benchlogs/
-                                # transient_scaling.txt).  Keep 0.0.
+                                # assumes SPD).  Keep 0.0.
                                 # (solvers.coarse.smoothed_coarse_dense_
                                 # matrix).  Dense coarse + exact-Jacobian
                                 # (eager prep) only.
@@ -111,7 +108,7 @@ class SolverConfig:
                                 # classic Chebyshev theory assumes a
                                 # positive-real spectrum; the NS saddle
                                 # point is indefinite — measure, don't
-                                # assume (see benchlogs).
+                                # assume.
     coarse_cheby_fraction: float = 0.3  # lower end of the smoothing
                                 # interval as a fraction of lmax (the
                                 # "cheby fraction" knob of hypre/ML); the
@@ -145,15 +142,14 @@ class SolverConfig:
                                 # path (a dense nc x nc inverse is O(nc^2)
                                 # memory / O(nc^3) setup: 452 MB at 511k
                                 # rows, 9.6 GB at 2.35M)
-    spmv: str = "auto"          # "auto" | "xla" | "pallas" | "plane": auto
-                                # uses the Pallas windowed-VMEM kernel on TPU
-                                # once x outgrows VMEM (XLA then rereads x
-                                # from HBM per diagonal; the kernel is ~2.7x
-                                # faster at 511k rows), XLA otherwise.
-                                # "plane" = component-plane operator layout
-                                # (by-component DoF ordering): 0.74x the
-                                # operator bytes (benchlogs/layout_census
-                                # .txt); two_level + single-chip only
+    spmv: str = "auto"          # "auto" | "xla" | "plane": auto and xla
+                                # apply the scalar-DIA operator
+                                # (ops.spmv.spmv_dia).  "plane" =
+                                # component-plane operator layout
+                                # (by-component DoF ordering,
+                                # ops.plane_dia): 0.74x the operator bytes
+                                # (bench/layout_census.py); used by the
+                                # two_level and schur preconditioners
     deflation_k: int = 0        # GCRO-style recycled subspace size: k
                                 # harmonic-Ritz vectors of the
                                 # preconditioned operator, computed ONCE at
@@ -166,20 +162,6 @@ class SolverConfig:
                                 # method='gmres'; single-chip only.
     deflation_arnoldi: int = 0  # Arnoldi length for the recycle setup;
                                 # 0 = auto (max(3k, 48))
-    cgs2: str = "xla"           # "xla" | "pallas" | "pallas_comp": GMRES
-                                # orthogonalization
-                                # backend.  "pallas" = the fused 3-sweep
-                                # projection with a dynamic active-row bound
-                                # (ops/cgs2_pallas.py, ~0.38x the HBM
-                                # traffic of the 4 XLA GEMVs); requires a
-                                # tile-aligned vector length (the flagship
-                                # plane/pretiled layouts) else falls back
-                                # to XLA.  "pallas_comp" additionally
-                                # runs the projection sums as Kahan
-                                # compensated f32 (the TPU-native
-                                # mixed-precision CGS2 — f64 does not run
-                                # natively on the chip).  Single-chip
-                                # gmres only.
     ca_basis: str = "monomial"  # method='ca_gmres' basis polynomial:
                                 # "monomial" (v, Av, A^2 v, ...) or
                                 # "newton" — Leja-ordered shifted products
@@ -188,15 +170,14 @@ class SolverConfig:
                                 # from a prepare-time Arnoldi sweep
                                 # (solvers.sstep.newton_shifts).  The
                                 # monomial basis conditions like kappa^m
-                                # and stalls in f32 at 117k rows
-                                # (benchlogs/ca_gmres.txt); newton is the
-                                # textbook fix.  Requires jacobian='exact'
+                                # and stalls in f32 at 117k rows; newton is
+                                # the textbook fix.  Requires jacobian='exact'
                                 # (shifts of the constant operator);
                                 # single-chip.
     matvec_dtype: Optional[str] = None  # e.g. "bfloat16": store the scaled
                                     # operator in low precision (halves SpMV
-                                    # HBM traffic; Krylov vectors stay in the
-                                    # run dtype). Only sensible when rtol is
+                                    # memory traffic; Krylov vectors stay in
+                                    # the run dtype). Only sensible when rtol is
                                     # well above bf16 epsilon (~8e-3 per op,
                                     # GMRES tolerates inexact matvecs).
 
@@ -246,8 +227,8 @@ class NSConfig:
     # reference residual is linear in u (convection cancels identically).
     # "elementwise": per-element evaluation + scatter, the literal
     # re-expression of `compute_residual_optimized`
-    # (`src/solve_newton.c:284-386`); ~600x slower on TPU, kept as the
-    # parity oracle.  Both agree to roundoff (tested).
+    # (`src/solve_newton.c:284-386`); much slower, kept as the parity
+    # oracle.  Both agree to roundoff (tested).
     jacobian: str = "exact"         # "exact" | "reference".
     # The reference residual is LINEAR in u — its convection terms cancel
     # identically (see tests/test_elements.py::test_convection_cancellation
@@ -280,11 +261,10 @@ class NSConfig:
 
 
 def auto_coarse_agg(ndof: int) -> int:
-    """Measured two_level aggregate-size schedule (the tuned winners of the
-    per-size sweeps in benchlogs/transient_scaling.txt: agg=48 at matrix 6,
-    128 at matrix 8, 256 at matrices 9-10).  The coarse space is non-monotone
-    in agg on the saddle-point operator, so these are swept values, not a
-    formula — re-sweep before extending the table."""
+    """Two_level aggregate-size schedule (swept winners: agg=48 at matrix
+    6, 128 at matrix 8, 256 at matrices 9-10).  The coarse space is
+    non-monotone in agg on the saddle-point operator, so these are swept
+    values, not a formula — re-sweep before extending the table."""
     if ndof <= 150_000:
         return 48
     if ndof <= 600_000:
@@ -298,15 +278,14 @@ AUTO_COARSE_DENSE_CAP = 16_384
 
 
 def auto_preconditioner(ndof: int) -> dict:
-    """Measured preconditioner schedule (round-5 sweeps at matrices 6/8/9/10,
-    benchlogs/transient_scaling.txt): the coupled two_level cycle with a
-    degree-3 Chebyshev post-smoother wins at mmesh scale (9.4 vs 11.6
-    ms/step at 117k), and the pressure-Schur block preconditioner with a
-    degree-2 Chebyshev velocity smoother wins above it (56.1 vs 83.1 ms at
-    511k, 166 vs 266 ms at 1M, 507 vs 1174 ms at 2.35M — iteration growth
-    flattens from 69->253 to 42->90 over 117k->2.35M).  The tier boundary
-    reuses auto_coarse_agg's first tier; both tables are swept values, not
-    formulas — re-sweep before extending."""
+    """Preconditioner schedule (swept at matrices 6/8/9/10): the coupled
+    two_level cycle with a degree-3 Chebyshev post-smoother at mmesh scale,
+    and the pressure-Schur block preconditioner with a degree-2 Chebyshev
+    velocity smoother above it, where linear-iteration growth with size is
+    flatter (42 -> 90 linear iterations per step over 117k -> 2.35M rows,
+    against 69 -> 253 for two_level).  The tier boundary reuses
+    auto_coarse_agg's first tier; both tables are swept values, not
+    formulas — re-sweep on the GPU before extending."""
     if ndof <= 150_000:
         return {"preconditioner": "two_level", "coarse_cheby": 3}
     return {"preconditioner": "schur", "schur_v_cheby": 2}

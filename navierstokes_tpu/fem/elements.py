@@ -3,8 +3,8 @@
 Re-derivation of the reference element matrices (`src/integration.c`) in
 closed, batched form.  All functions here operate on ONE element with plain
 `jnp` ops and are meant to be `vmap`-ed over the element axis; under `jit`
-the batched versions become fused dense batched einsums that map onto the
-MXU/VPU — no Python loops, no 12x12 scalar kernels.
+the batched versions become fused dense batched einsums — no Python loops,
+no 12x12 scalar kernels.
 
 DoF conventions (matching the reference):
   - local velocity DoF I = 3*i + alpha for node i in 0..3, component alpha,
@@ -29,6 +29,19 @@ import jax.numpy as jnp
 # (the {1,1,1,0.5,0.5,0.5} diagonal of `src/integration.c:119`).
 _VOIGT_WEIGHTS = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5)
 
+# Every contraction below runs at full precision: the default f32 matmul
+# precision of an accelerator may be reduced (TF32 on the GPU, a 10-bit
+# mantissa), which would round the assembled operator's entries.
+_HP = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HP)
+
+
+def _einsum(spec, *operands):
+    return jnp.einsum(spec, *operands, precision=_HP)
+
 
 def tet_volume(a):
     """Signed volume det(a1-a0, a2-a0, a3-a0) / 6 for vertices a: (4, 3)."""
@@ -50,7 +63,7 @@ def tet_gradients(a):
     """
     e = a[1:] - a[0]
     n = jnp.cross(e[1], e[2])
-    vol6 = jnp.dot(e[0], n)  # 6V
+    vol6 = jnp.dot(e[0], n, precision=_HP)  # 6V
 
     # Opposite-face vertex triples (j, k, l) per node, orientation-fixed.
     faces = ((1, 2, 3), (0, 3, 2), (0, 1, 3), (0, 2, 1))
@@ -81,7 +94,7 @@ def mass_matrix(vol, dtype=None):
     m4 = mass_matrix_scalar(vol, dtype)
     # M[3i+a, 3j+b] = delta_ab * M4[i, j]
     eye3 = jnp.eye(3, dtype=m4.dtype)
-    return jnp.einsum("ij,ab->iajb", m4, eye3).reshape(12, 12)
+    return _einsum("ij,ab->iajb", m4, eye3).reshape(12, 12)
 
 
 def strain_operator(grad):
@@ -108,28 +121,28 @@ def diffusion_matrix(grad, vol, reynolds):
     """A0 (12, 12) = (2/Re) * vol * S^T diag(w) S  (viscous term)."""
     S = strain_operator(grad)
     w = jnp.asarray(_VOIGT_WEIGHTS, dtype=S.dtype)
-    return (2.0 / reynolds) * vol * (S.T * w) @ S
+    return (2.0 / reynolds) * vol * _mm(S.T * w, S)
 
 
 def velocity_gradient(U, grad):
     """G[alpha, beta] = d u_alpha / d x_beta for nodal field U (3, 4)."""
-    return U @ grad  # (3, 4) @ (4, 3) -> (3, 3)
+    return _mm(U, grad)  # (3, 4) @ (4, 3) -> (3, 3)
 
 
 def convection_matrix_linearized(U, grad, vol):
     """A1 (12, 12): A1[3i+a, 3j+b] = G[a, b] * M4[i, j]."""
     G = velocity_gradient(U, grad)
     m4 = mass_matrix_scalar(vol, G.dtype)
-    return jnp.einsum("ij,ab->iajb", m4, G).reshape(12, 12)
+    return _einsum("ij,ab->iajb", m4, G).reshape(12, 12)
 
 
 def convection_matrix_nonlinear(U, grad, vol):
     """A2 (12, 12): A2[3i+a, 3j+b] = -delta_ab * sum_m M4[i, m] (U[:, m] . grad_j)."""
     m4 = mass_matrix_scalar(vol, U.dtype)
-    K = jnp.einsum("dm,jd->mj", U, grad)       # (4, 4): K[m, j] = U[:,m].grad_j
-    T = m4 @ K                                  # (4, 4)
+    K = _einsum("dm,jd->mj", U, grad)          # (4, 4): K[m, j] = U[:,m].grad_j
+    T = _mm(m4, K)                              # (4, 4)
     eye3 = jnp.eye(3, dtype=U.dtype)
-    return -jnp.einsum("ij,ab->iajb", T, eye3).reshape(12, 12)
+    return -_einsum("ij,ab->iajb", T, eye3).reshape(12, 12)
 
 
 def divergence_matrix(grad, vol):
@@ -140,7 +153,7 @@ def divergence_matrix(grad, vol):
 
 def pressure_stabilization_matrix(grad, vol, h, delta):
     """D (4, 4) = delta * h^2 * vol * grad_i . grad_j  (Brezzi–Pitkaranta)."""
-    return (delta * h * h * vol) * (grad @ grad.T)
+    return (delta * h * h * vol) * _mm(grad, grad.T)
 
 
 def convection_jacobian(U, grad, vol):
@@ -153,12 +166,12 @@ def convection_jacobian(U, grad, vol):
     G = velocity_gradient(U, grad)
     q = vol / 4.0
     ones4 = jnp.ones((4, 4), dtype=dtype)
-    A1_jac = q * jnp.einsum("ik,ab->iakb", ones4, G).reshape(12, 12)
+    A1_jac = q * _einsum("ik,ab->iakb", ones4, G).reshape(12, 12)
 
     u_mean = jnp.mean(U, axis=1)                  # (3,)
-    c = grad @ u_mean                             # (4,): u_mean . grad_k
+    c = _mm(grad, u_mean)                         # (4,): u_mean . grad_k
     eye3 = jnp.eye(3, dtype=dtype)
-    A2_jac = q * jnp.einsum("i,k,ab->iakb", jnp.ones(4, dtype=dtype), c, eye3).reshape(
+    A2_jac = q * _einsum("i,k,ab->iakb", jnp.ones(4, dtype=dtype), c, eye3).reshape(
         12, 12
     )
     return A1_jac, A2_jac
@@ -167,7 +180,7 @@ def convection_jacobian(U, grad, vol):
 # ---------------------------------------------------------------------------
 # Per-element geometric precompute (the `ElementMatrices` analog,
 # `src/solve_newton.c:26-36`): only the cheap invariants are stored; matrices
-# are rebuilt on the fly under jit (recompute beats HBM traffic on TPU).
+# are rebuilt on the fly under jit (recompute beats memory traffic).
 # ---------------------------------------------------------------------------
 
 
@@ -242,7 +255,7 @@ def element_residual(grad, vol, h, UL, UL_old, PL, dt, reynolds, delta):
     m4 = mass_matrix_scalar(vol, dtype)
 
     # M/dt terms, per component: (M4 @ U^T) / dt -> (4 nodes, 3 comps)
-    mass_term = (m4 @ (UL - UL_old).T) / dt
+    mass_term = _mm(m4, (UL - UL_old).T) / dt
 
     # Diffusion: F_v[i, c] = (2/Re) vol sum_b grad[i, b] tau[c, b]
     G = velocity_gradient(UL, grad)               # (3, 3)
@@ -250,13 +263,13 @@ def element_residual(grad, vol, h, UL, UL_old, PL, dt, reynolds, delta):
     # tau = weighted stress: diagonal weight 1, off-diagonal weight 0.5 applied
     # to (G + G^T) -> exactly S^T diag(w) S u expanded.
     tau = jnp.where(jnp.eye(3, dtype=bool), G, sym)
-    diff_term = (2.0 / reynolds) * vol * (grad @ tau.T)  # (4, 3)
+    diff_term = (2.0 / reynolds) * vol * _mm(grad, tau.T)  # (4, 3)
 
     # Convection A1: (A1 u)[i, a] = sum_j M4[i, j] sum_b G[a, b] U[b, j]
-    conv1 = (m4 @ (G @ UL).T)                      # (4, 3)
+    conv1 = _mm(m4, _mm(G, UL).T)                  # (4, 3)
     # Convection A2: (A2 u)[i, a] = -sum_j (sum_m M4[i, m] K[m, j]) U[a, j]
-    K = jnp.einsum("dm,jd->mj", UL, grad)
-    conv2 = -((m4 @ K) @ UL.T)                     # (4, 3)
+    K = _einsum("dm,jd->mj", UL, grad)
+    conv2 = -_mm(_mm(m4, K), UL.T)                 # (4, 3)
 
     # Pressure gradient: (B^T p)[i, a] = (vol/4) grad[i, a] * sum_j p_j
     pgrad = (vol / 4.0) * jnp.sum(PL) * grad       # (4, 3)
@@ -266,5 +279,5 @@ def element_residual(grad, vol, h, UL, UL_old, PL, dt, reynolds, delta):
     # Divergence: (B u)[i] = (vol/4) sum_{j,a} grad[j, a] U[a, j]  (indep of i)
     div = (vol / 4.0) * jnp.sum(grad * UL.T)
     D = pressure_stabilization_matrix(grad, vol, h, delta)
-    F_p = -div * jnp.ones(4, dtype=dtype) + D @ PL
+    F_p = -div * jnp.ones(4, dtype=dtype) + _mm(D, PL)
     return F_v, F_p

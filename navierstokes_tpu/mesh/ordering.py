@@ -1,10 +1,10 @@
 """Node reordering for locality.
 
-TPU sparse kernels live or die by gather locality (SURVEY.md §7 "hard parts"):
-with reverse-Cuthill–McKee ordering the FEM operator becomes banded, so a row
-tile's column references fall inside a bounded window — the property the
-block-ELL Pallas kernel and the contiguous multi-chip partitioning both rely
-on.  The reference has no analog (PETSc natural ordering); this is TPU-first
+Accelerator sparse kernels live or die by locality (SURVEY.md §7 "hard
+parts"): with reverse-Cuthill–McKee ordering the FEM operator becomes banded,
+so a row's column references fall inside a bounded window — the property the
+DIA / component-plane layouts and the contiguous multi-device partitioning
+all rely on.  The reference has no analog (PETSc natural ordering); this is
 design, not translation.
 """
 

@@ -1,6 +1,6 @@
 // nstpu_native — host-side native runtime for navierstokes_tpu.
 //
-// The TPU compute path is JAX/XLA (see ops/, sparse/); this library covers
+// The device compute path is JAX/XLA (see ops/, sparse/); this library covers
 // the host-side roles the reference implements natively: the mesh data
 // loader (read_mesh, src/solve_newton.c:91-197), the sparsity-graph builder
 // (the MatSeqBAIJSetPreallocation + MatSetValuesBlocked pattern machinery),

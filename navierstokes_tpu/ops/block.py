@@ -1,6 +1,6 @@
 """Small dense block operations.
 
-The 4x4 unpivoted Gauss–Jordan inverse is the TPU equivalent of
+The 4x4 unpivoted Gauss–Jordan inverse is the batched equivalent of
 `Kernel_A_gets_inverse_A_4_nopivot_scalar` (`src/kernels/baij4_factor_avx2.c:7-58`)
 with the same zero-pivot emergency regularization (+1e-8 on the diagonal,
 `:283-290`), vmapped into one batched op for the block-Jacobi preconditioner.
@@ -43,4 +43,5 @@ def block4_inverse(blocks, pivot_eps=0.0, shift=1e-8):
 def block4_apply(blocks, x):
     """y = blockdiag(blocks) @ x for blocks (nb, 4, 4), x (4nb,)."""
     nb = blocks.shape[0]
-    return jnp.einsum("rab,rb->ra", blocks, x.reshape(nb, 4)).reshape(-1)
+    return jnp.einsum("rab,rb->ra", blocks, x.reshape(nb, 4),
+                      precision=jax.lax.Precision.HIGHEST).reshape(-1)

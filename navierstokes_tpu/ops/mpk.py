@@ -1,21 +1,18 @@
 """Matrix-powers kernels: A^k x and s-step Krylov basis construction.
 
-The TPU re-expression of the reference's communication-avoiding mpk suite
+The JAX re-expression of the reference's communication-avoiding mpk suite
 (SURVEY.md §2.2 #25-27): `Generate1stlayer`/`Generate2ndlayer`/... build
 ragged dependency-pointer tables so SpM2V/SpM3V/SpM4V compute A^2x/A^3x/A^4x
 in one sweep over the matrix (`mpk/SpM2V.cpp`, `mpk/SpMVmulti0.cpp`).
 
-On TPU the same idea splits across two levels:
+Here the same idea splits across two levels:
 
-- **within a chip** there is no cache hierarchy to avoid — HBM streaming is
-  the cost — so `matrix_power` chains the DIA fast path inside one jitted
-  computation (one dispatch, XLA-scheduled); `ops.mpk_pallas.spm2v_dia_pallas`
-  is the fused single-sweep A^2x variant (ghost-overlap tiling: each tile
-  computes the intermediate y on a halo-extended window in VMEM, reading A
-  once plus halo overlap instead of twice — the `SpM2V.cpp` analog),
-- **across chips** the communication-avoiding structure is real:
+- **within a device** `matrix_power` chains the DIA SpMV inside one jitted
+  computation (one dispatch, XLA-scheduled); a fused single-sweep A^p x
+  only pays where the operator fits in cache between sweeps,
+- **across devices** the communication-avoiding structure is real:
   `parallel.partitioned.partitioned_spmv_power` exchanges a k-deep ghost
-  layer ONCE and runs k local sweeps — one ICI round instead of k.
+  layer ONCE and runs k local sweeps — one exchange round instead of k.
 
 `krylov_basis` is the `BuildKrylovBasis_AVX2` equivalent
 (`src/kernels/spmm_avx2.c:112-168`): builds [v, Av, A^2 v, ..., A^s v]

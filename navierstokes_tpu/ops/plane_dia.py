@@ -1,35 +1,27 @@
-"""Component-plane DIA SpMV — the block-structure-aware second layout.
+"""Component-plane DIA SpMV — the block-structure-aware operator layout.
 
 The answer to the reference's "does a second block layout pay?" question
 (`src/kernels/baij8_avx512.c` tried 8x8 blocks for AVX-512 register reuse).
-On a v5e the SpMV is HBM-bandwidth-bound, so a layout wins exactly when it
+The SpMV is a bandwidth-bound stream, so a layout wins exactly when it
 moves fewer bytes while staying gather-free.  The census over the real
-patterns (`bench/layout_census.py`, benchlogs/layout_census.txt) shows the
-scalar-DIA band stores 81 scalar diagonals where the underlying BLOCK
-pattern has only 15 node diagonals: dense 4x4 blocks on 15 node offsets
-need 15*16 = 240 nb values, 0.741x of scalar-DIA's 81*4 nb = 324 nb.
+patterns (`bench/layout_census.py`) shows the scalar-DIA band stores 81
+scalar diagonals where the underlying BLOCK pattern has only 15 node
+diagonals: dense 4x4 blocks on 15 node offsets need 15*16 = 240 nb values,
+0.741x of scalar-DIA's 81*4 nb = 324 nb.
 
 The layout change that unlocks it is the reference's OWN alternative DoF
 numbering: ORDER_BY_COMPONENT (`src/create_mat.c:55-61`).  With vectors
-stored as four contiguous component planes (u | v | w | p, each (nb,)),
+stored as four contiguous component planes (u | v | w | p, each (nbp,)),
 the operator becomes 16 plane-pair couplings, each a band of 15 node
-diagonals over (nb,)-vectors:
+diagonals over (nbp,)-vectors:
 
     y_a[i] = sum_{b, D}  V[a, b, D][i] * x_b[i + D]
 
-— statically shifted contiguous slices, zero gathers, exactly the shape
-the VPU wants.  The same trade the reference makes between AIJ and BAIJ
-(`mpk/SpMV.cpp` kernel table) becomes a pure bandwidth argument here.
-
-Kernel structure mirrors `ops.pallas_dia._dia_kernel_windowed` (pre-tiled
-operator in (grid, 4, NT, tile) layout, double-buffered x-window DMAs, x in
-HBM) with a (tiles, 4) grid: the four output planes of one node tile reuse
-the same four x-plane windows, DMA'd once per tile.
-
-Mosaic notes inherited from pallas_dia.py: flat 1-D VMEM dynamic offsets
-must be provably 4 KB-granule-aligned (split static diagonal offsets into
-aligned dynamic start + static remainder slice); no 1-D->2-D reshapes;
-1-D DMA source/target must share tiling (windows rounded to the granule).
+— statically shifted contiguous slices, zero gathers.  Operator data is
+stored naturally as (n_out, NT, nbp): plane a, term j = (b, D) of
+`plane_terms`, node i.  `spmv_planes` is plain `jax.numpy`: XLA fuses the
+shifted slices, the multiplies and the sum into one loop fusion, and the
+x reuse across the +-h window is served by the caches.
 """
 
 from __future__ import annotations
@@ -38,8 +30,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def node_offsets_from_scalar(offsets: tuple) -> tuple:
@@ -68,14 +58,21 @@ def plane_terms(node_offsets: tuple, n_in: int = 4) -> tuple:
     return tuple((b, d) for d in node_offsets for b in range(n_in))
 
 
-def extract_planes(offsets: tuple, data, nb: int, node_offsets=None):
-    """Scalar-DIA (K, 4*nb) data -> plane data (4, NT, nb).
+def plane_halo(node_offsets: tuple) -> int:
+    """Node halo h = max |D| (at least 1): the x window each node reads."""
+    return max(max(abs(d) for d in node_offsets), 1)
+
+
+def extract_planes(offsets: tuple, data, nb: int, node_offsets=None,
+                   nbp: int = None):
+    """Scalar-DIA (K, 4*nb) data -> plane data (4, NT, nbp).
 
     planes[a, j] with terms[j] = (b, D) holds A[4i+a, 4(i+D)+b] for each
     node row i — i.e. the (a, b) entries of the node-offset-D blocks.
     Entry k = 4D + (b - a) of the scalar set; rows 4i + a are the stride-4
     slice data[k][a::4].  Scalar diagonals absent from the set are zero
-    planes (blocks the band union padded in; they carry no values).
+    planes (blocks the band union padded in; they carry no values).  Nodes
+    nb..nbp are zero padding (`nbp` defaults to nb).
     """
     if node_offsets is None:
         node_offsets = node_offsets_from_scalar(offsets)
@@ -92,147 +89,47 @@ def extract_planes(offsets: tuple, data, nb: int, node_offsets=None):
             else:
                 rows.append(zeros)
         planes.append(jnp.stack(rows))
-    return jnp.stack(planes)                       # (4, NT, nb)
+    planes = jnp.stack(planes)                       # (4, NT, nb)
+    if nbp is not None and nbp > nb:
+        planes = jnp.pad(planes, ((0, 0), (0, 0), (0, nbp - nb)))
+    return planes
 
 
-def pretile_planes(planes, nb: int, *, tile: int = 4096, nbp: int = None):
-    """(4, NT, nb) plane data -> (grid, 4, NT, tile) tile-major layout.
+@functools.partial(jax.jit, static_argnames=("node_offsets", "x_prehalo"))
+def spmv_planes(node_offsets, data, x, *, x_prehalo: bool = False):
+    """y = A x for an (n_out x n_in) plane-coupling operator.
 
-    One contiguous DMA per (tile, output-plane) grid step, exactly as
-    `pallas_dia.pretile_dia` does for the scalar layout.  `nbp` overrides
-    the padded node count (must be a tile multiple >= nb) — the distributed
-    layout pads further so every device gets whole tiles."""
-    four, nt, _ = planes.shape
-    if nbp is None:
-        nbp = -(-nb // tile) * tile
-    assert nbp % tile == 0 and nbp >= nb, (nbp, tile, nb)
-    p = jnp.pad(planes, ((0, 0), (0, 0), (0, nbp - nb)))
-    return p.reshape(four, nt, nbp // tile, tile).transpose(2, 0, 1, 3)
-
-
-def _plane_kernel(terms, tile, halo, win, granule, n_in,
-                  xp_ref, data_ref, out_ref, xwin, sem):
-    """Grid (tiles, n_out): output plane a of node tile t per step.
-
-    The n_in x-plane windows for tile t are DMA'd once (at a == 0) into the
-    double-buffered flat scratch and reused by all output planes; the next
-    tile's windows prefetch during tile t's n_out compute steps."""
-    t = pl.program_id(0)
-    a = pl.program_id(1)
-    ntiles = pl.num_programs(0)
-    slot = t % 2
-    nxt = 1 - slot
-
-    def window_copy(j, b, s):
-        return pltpu.make_async_copy(
-            xp_ref.at[pl.ds(b * (ntiles * tile + win) + j * tile, win)],
-            xwin.at[pl.ds(pl.multiple_of((s * n_in + b) * win, granule), win)],
-            sem.at[s, b],
-        )
-
-    @pl.when(jnp.logical_and(t == 0, a == 0))
-    def _():
-        for b in range(n_in):
-            window_copy(0, b, 0).start()
-
-    @pl.when(jnp.logical_and(a == 0, t + 1 < ntiles))
-    def _():
-        for b in range(n_in):
-            window_copy(t + 1, b, nxt).start()
-
-    @pl.when(a == 0)
-    def _():
-        for b in range(n_in):
-            window_copy(t, b, slot).wait()
-
-    acc_dtype = jnp.promote_types(out_ref.dtype, jnp.float32)
-    acc = jnp.zeros((tile,), dtype=acc_dtype)
-    for j, (b, d) in enumerate(terms):
-        # xwin holds [slot][b] windows back to back, each win long (granule-
-        # rounded); x_b[i + d] sits at window offset halo + d + (i - t*tile).
-        q, r = divmod(halo + d, granule)
-        start = pl.multiple_of((slot * n_in + b) * win, granule) + granule * q
-        seg = xwin[pl.ds(start, tile + granule)]
-        xs = jax.lax.slice_in_dim(seg, r, r + tile, axis=0)
-        acc = acc + data_ref[0, 0, j, :].astype(acc_dtype) * xs.astype(acc_dtype)
-    out_ref[...] = acc.astype(out_ref.dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("node_offsets", "n_in", "nb", "interpret", "x_prehalo"),
-)
-def spmv_planes_pallas(node_offsets, data, x, *, n_in: int, nb: int,
-                       interpret=None, x_prehalo: bool = False):
-    """y = A x for an arbitrary (n_out x n_in) plane-coupling operator.
-
-    The generic form of the component-plane SpMV: data (grid, n_out,
-    n_in * N_D, tile) pre-tiled plane couplings (term order = `plane_terms
-    (node_offsets, n_in)`); x flat plane-major (n_in * nbp,); returns
-    (n_out * nbp,).  Sub-block applies of the 4x4 node-block operator —
-    the velocity block F (3x3), the divergence row -B (1x3), the gradient
+    data: (n_out, NT, nbp) plane couplings, term order `plane_terms
+    (node_offsets, n_in)` with n_in = NT / len(node_offsets); x: flat
+    plane-major (n_in * nbp,); returns (n_out * nbp,).  The full node-block
+    operator is 4x4; sub-block applies ride the same function — the
+    velocity block F (3x3), the divergence row -B (1x3), the gradient
     column B^T (3x1) and scalar node operators such as the approximate
-    pressure Schur complement (1x1, solvers/schur.py) — all ride the same
-    windowed double-buffered kernel, paying HBM only for the planes they
-    actually touch.
+    pressure Schur complement (1x1, solvers/schur.py) — paying memory
+    traffic only for the planes they touch.
 
-    `nb` is the live node count (<= nbp); rows past it are zero-padded
-    through.  x_prehalo=True: each plane of x already carries `h` ghost
-    nodes on both ends (the distributed per-shard case, halo filled by a
-    ppermute exchange — parallel.partitioned_spmv_plane).
+    Rows whose data columns are zero (padding nodes) come out zero.
+    x_prehalo=True: each plane of x already carries `h` ghost nodes on both
+    ends, x is (n_in * (nbp + 2h),) — the distributed per-shard case, halo
+    filled by a ppermute exchange (parallel.partitioned_spmv_plane).
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    grid, n_out, nt, tile = data.shape
+    n_out, nt, nbp = data.shape
+    n_in = nt // len(node_offsets)
     terms = plane_terms(node_offsets, n_in)
     assert nt == len(terms), (nt, len(terms))
-    nbp = grid * tile
-    h = max(max(abs(d) for d in node_offsets), 1)
-    granule = max(4096 // x.dtype.itemsize, 128)
-    win = -(-(tile + 2 * h + granule) // granule) * granule
-    # Per-plane padded stream: xp[b*(nbp+win) + h + i] = x_b[i].  The +win
-    # tail keeps the last tile's window (start (nbp-tile), length win) inside
-    # the plane's own segment; h left-pads the negative node offsets.
+    h = plane_halo(node_offsets)
     if x_prehalo:
-        assert x.shape[0] == n_in * (nbp + 2 * h)
-        xp = jnp.pad(
-            x.reshape(n_in, nbp + 2 * h), ((0, 0), (0, win - 2 * h))
-        ).reshape(-1)
+        assert x.shape[0] == n_in * (nbp + 2 * h), (x.shape, n_in, nbp, h)
+        xw = x.reshape(n_in, nbp + 2 * h)
     else:
-        assert x.shape[0] == n_in * nbp
-        xp = jnp.pad(x.reshape(n_in, nbp), ((0, 0), (h, win - h))).reshape(-1)
-
-    out = pl.pallas_call(
-        functools.partial(_plane_kernel, terms, tile, h, win, granule, n_in),
-        out_shape=jax.ShapeDtypeStruct((n_out * nbp,), x.dtype),
-        grid=(grid, n_out),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),       # x planes stay in HBM
-            pl.BlockSpec((1, 1, nt, tile), lambda t, a: (t, a, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile,), lambda t, a: (a * grid + t,),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2 * n_in * win,), x.dtype),  # 2 slots x n_in windows
-            pltpu.SemaphoreType.DMA((2, n_in)),
-        ],
-        interpret=interpret,
-    )(xp, data)
-    return out
-
-
-def spmv_plane_pallas(node_offsets, data, x, *, nb: int, interpret=None,
-                      x_prehalo: bool = False):
-    """y = A x in component-plane layout (the flagship 4x4 case).
-
-    data: (grid, 4, NT, tile) from `pretile_planes`; x: flat (4 * nbp,)
-    plane-major (plane b at [b*nbp, (b+1)*nbp), nbp = grid * tile); returns
-    y of the same flat plane-major shape.  See `spmv_planes_pallas` for the
-    generic (n_out x n_in) form this delegates to.
-    """
-    return spmv_planes_pallas(node_offsets, data, x, n_in=4, nb=nb,
-                              interpret=interpret, x_prehalo=x_prehalo)
+        assert x.shape[0] == n_in * nbp, (x.shape, n_in, nbp)
+        xw = jnp.pad(x.reshape(n_in, nbp), ((0, 0), (h, h)))
+    acc_dtype = jnp.promote_types(x.dtype, jnp.float32)
+    acc = jnp.zeros((n_out, nbp), acc_dtype)
+    for j, (b, d) in enumerate(terms):
+        xs = jax.lax.slice_in_dim(xw[b], h + d, h + d + nbp)
+        acc = acc + data[:, j, :].astype(acc_dtype) * xs.astype(acc_dtype)
+    return acc.astype(x.dtype).reshape(-1)
 
 
 def to_planes(x, nb: int, nbp: int):

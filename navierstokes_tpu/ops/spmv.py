@@ -1,15 +1,15 @@
 """Blocked sparse matrix-vector products (the #9-11 / #24 kernel family).
 
-TPU-native variants, orderd from oracle to fast:
+Variants, ordered from oracle to fast:
 
 - `spmv_bcsr_ref`: segment-sum over BCSR blocks — the "scalar CSR" oracle
   every optimized variant is validated against, mirroring the reference's
   methodology (`mpk/SpMV.cpp:7-20` + `rel_error`, `mpk/utils.cpp:131-143`).
 - `spmv_bell`: gather + batched einsum over the padded block-ELL layout; XLA
-  lowers the gather to TPU dynamic-gather and fuses the 4x4 contraction.
+  lowers the gather and fuses the 4x4 contraction.
 - `spmv_bell_windowed`: same contraction but with columns rebased into a
-  per-row-tile window (valid under RCM ordering); this is the formulation the
-  Pallas kernel implements, exposed in pure JAX for validation.
+  per-row-tile window (valid under RCM ordering).
+- `spmv_dia`: the scalar-DIA shifted multiply-adds (`sparse/dia.py`).
 
 All inputs use scalar DoF vectors x of shape (4*nb,).
 """
@@ -19,12 +19,16 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+# Full f32 contractions: the default matmul precision may be reduced on an
+# accelerator (TF32 on the GPU).
+HP = jax.lax.Precision.HIGHEST
+
 
 def spmv_bcsr_ref(row_ids, indices, values, x):
     """Oracle SpMV. row_ids/indices: (nnzb,), values: (nnzb,4,4), x: (4nb,)."""
     nb = x.shape[0] // 4
     x4 = x.reshape(nb, 4)
-    contrib = jnp.einsum("kab,kb->ka", values, x4[indices])
+    contrib = jnp.einsum("kab,kb->ka", values, x4[indices], precision=HP)
     y4 = jax.ops.segment_sum(contrib, row_ids, num_segments=nb)
     return y4.reshape(-1)
 
@@ -37,7 +41,7 @@ def spmv_bell(indices, values, x):
     nb, s = indices.shape
     x4 = x.reshape(nb, 4)
     gathered = x4[indices]                        # (nb, S, 4)
-    y4 = jnp.einsum("rsab,rsb->ra", values, gathered)
+    y4 = jnp.einsum("rsab,rsb->ra", values, gathered, precision=HP)
     return y4.reshape(-1)
 
 
@@ -45,24 +49,23 @@ def spmv_bell_multi(indices, values, X):
     """Block-ELL SpMM against a multivector X: (4nb, m) -> (4nb, m).
 
     The s-step Krylov basis building block (`MatMatMult_SeqBAIJ_4_AVX2`,
-    `src/kernels/spmm_avx2.c:7-109`) — on TPU just a wider einsum so the MXU
-    sees an (a x b) @ (b x m) contraction per block.
+    `src/kernels/spmm_avx2.c:7-109`) — just a wider einsum, an (a x b) @
+    (b x m) contraction per block.
     """
     nb, s = indices.shape
     m = X.shape[1]
     X4 = X.reshape(nb, 4, m)
     gathered = X4[indices]                        # (nb, S, 4, m)
-    Y4 = jnp.einsum("rsab,rsbm->ram", values, gathered)
+    Y4 = jnp.einsum("rsab,rsbm->ram", values, gathered, precision=HP)
     return Y4.reshape(4 * nb, m)
 
 
 def spmv_bell_windowed(indices, values, x, *, tile, window_starts, window):
-    """Row-tiled SpMV with windowed x access (the Pallas formulation).
+    """Row-tiled SpMV with windowed x access.
 
     For each tile t of `tile` block-rows, all referenced columns must lie in
     [window_starts[t], window_starts[t] + window).  Columns are rebased into
-    the window and gathered from the local slice — exactly what the Pallas
-    kernel does from VMEM.
+    the window and gathered from the local slice.
     """
     nb, s = indices.shape
     assert nb % tile == 0
@@ -79,7 +82,7 @@ def spmv_bell_windowed(indices, values, x, *, tile, window_starts, window):
             values, (t0, zero, zero, zero), (tile, s, 4, 4)
         )
         gathered = xw[idx]                                      # (tile, S, 4)
-        return jnp.einsum("rsab,rsb->ra", vals, gathered)
+        return jnp.einsum("rsab,rsb->ra", vals, gathered, precision=HP)
 
     y4 = jax.vmap(tile_body)(jnp.arange(nt))
     return y4.reshape(-1)
@@ -88,10 +91,9 @@ def spmv_bell_windowed(indices, values, x, *, tile, window_starts, window):
 def spmv_dia(offsets, data, x):
     """Scalar-DIA SpMV: y = sum_k data[k] * shift(x, offsets[k]).
 
-    THE fast path on TPU (see `sparse/dia.py`): K unrolled fused multiply-adds
-    over contiguous (ndof,) lanes, statically shifted slices, zero gathers.
-    ~234 GF/s f32 / ~450 GF/s bf16 on one v5e chip for the 121k-row NS
-    operator — HBM-bandwidth-bound, 60-115x the reference's AVX2 kernel.
+    The scalar fast path (see `sparse/dia.py`): K unrolled fused
+    multiply-adds over contiguous (ndof,) vectors, statically shifted
+    slices, zero gathers; memory-bandwidth-bound.
 
     offsets: static tuple of ints; data: (K, ndof); x: (ndof,).
     """
@@ -115,7 +117,7 @@ def spmv_dia_multi(offsets, data, X):
     return Y
 
 
-SPMV_VARIANTS = ("oracle", "ell", "dia", "dia_bf16", "pallas_dia")
+SPMV_VARIANTS = ("oracle", "ell", "dia", "dia_bf16", "plane")
 
 
 def make_spmv(variant: str, *, bcsr=None, ell=None, dia=None):
@@ -140,10 +142,20 @@ def make_spmv(variant: str, *, bcsr=None, ell=None, dia=None):
     if variant == "dia_bf16":
         data16 = dia.data.astype(jnp.bfloat16)
         return lambda x: spmv_dia(dia.offsets, data16, x).astype(x.dtype)
-    if variant == "pallas_dia":
-        from navierstokes_tpu.ops.pallas_dia import spmv_dia_pallas
+    if variant == "plane":
+        from navierstokes_tpu.ops.plane_dia import (
+            extract_planes,
+            from_planes,
+            node_offsets_from_scalar,
+            spmv_planes,
+            to_planes,
+        )
 
-        return lambda x: spmv_dia_pallas(dia.offsets, dia.data, x)
+        nb = dia.ndof // 4
+        noffs = node_offsets_from_scalar(dia.offsets)
+        planes = extract_planes(dia.offsets, dia.data, nb, node_offsets=noffs)
+        return lambda x: from_planes(
+            spmv_planes(noffs, planes, to_planes(x, nb, nb)), nb, nb)
     raise ValueError(f"unknown spmv variant {variant!r}; one of {SPMV_VARIANTS}")
 
 

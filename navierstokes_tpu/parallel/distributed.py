@@ -9,12 +9,11 @@ reductions + psum.  Both the per-iteration ("reference" Jacobian) and the
 precomputed ("exact") solve paths inherit this automatically through
 `_solve_prepared`.
 
-The FLAGSHIP kernels run per shard (round 4): the operator is pre-tiled per
-device (`_dist_layout` pads every device to whole tiles) and each shard's
-SpMV is the same windowed double-buffered-DMA Pallas kernel as single-chip
-(`partitioned_spmv_dia_pretiled`); with spmv='plane' the whole Krylov space
-stays in the component-plane layout, node-partitioned, with a per-plane halo
-exchange (`partitioned_spmv_plane`, `_solve_prepared_tlp`).  This is the
+Each shard runs the same SpMV as the single-device solver: the scalar-DIA
+shifted multiply-adds (`partitioned_spmv_dia`), or with spmv='plane' the
+component-plane SpMV, with the whole Krylov space kept in the plane layout,
+node-partitioned, behind a per-plane halo exchange
+(`partitioned_spmv_plane`, `_solve_prepared_tlp`).  This is the
 kernel-injection seam applied to the distributed operator too — the
 reference injects its AVX2 MatMult into every operator it owns
 (`src/solve_newton.c:864-879`).
@@ -25,7 +24,6 @@ per-device chunk — `from_mesh` handles ordering and validates the fit.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import jax
@@ -36,10 +34,12 @@ from jax.sharding import Mesh as DeviceMesh, NamedSharding, PartitionSpec as P
 from navierstokes_tpu.config import NSConfig
 from navierstokes_tpu.mesh.core import Mesh
 from navierstokes_tpu.mesh.ordering import best_ordering, reorder_mesh
-from navierstokes_tpu.model.navier_stokes import NavierStokesSolver
+from navierstokes_tpu.model.navier_stokes import (
+    NavierStokesSolver,
+    _merge_prep,
+)
 from navierstokes_tpu.parallel.partitioned import (
     partitioned_spmv_dia,
-    partitioned_spmv_dia_pretiled,
     partitioned_spmv_plane,
 )
 from navierstokes_tpu.solvers.gmres import GMRESResult, gmres
@@ -77,17 +77,6 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
         self.device_mesh = DeviceMesh(np.array(devices), (axis,))
         self._epart = None
         super().__init__(mesh, cfg)
-        if self.cfg.krylov.cgs2 != "xla":
-            # The fused projection kernel is not wired into the sharded
-            # gmres calls (per-shard V windows would need their own halo
-            # bookkeeping); degrade loudly rather than silently ignore.
-            import warnings
-
-            warnings.warn(
-                f"cgs2={self.cfg.krylov.cgs2!r} is single-chip only; the "
-                "distributed solver uses the XLA orthogonalization",
-                stacklevel=2,
-            )
         # Sharded-setup element arrays ride the consts pytree into the
         # jitted step/stokes functions (never closure captures).
         self._ensure_epart()
@@ -105,73 +94,53 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
 
     # -- distributed kernel layouts ------------------------------------------
 
-    def _granule(self) -> int:
-        """1-D VMEM DMA granule in elements of the run dtype (Mosaic: 4 KB)."""
-        return max(4096 // jnp.dtype(self.dtype).itemsize, 128)
-
-    def _agg_mult(self) -> int:
-        """Scalar-row alignment required by the coarse aggregation (tl)."""
-        if self.cfg.krylov.preconditioner == "two_level":
-            return 4 * self.cfg.krylov.coarse_agg
-        return 1
-
-    def _dist_layout(self, offsets):
-        """(tile, n_pad) for the per-shard pre-tiled scalar-DIA layout.
-
-        Every device gets whole kernel tiles (tile | rows-per-device), whole
-        aggregates (4*agg | tile), and a halo that fits its slice.  tile is
-        a DMA-granule multiple near the single-chip empirical target."""
-        h = max(max(abs(d) for d in offsets), 1)
-        n = self.disc.ndof
-        ndev = self.n_devices
-        base = math.lcm(self._agg_mult(), self._granule())
-        target = 8192 if n // ndev <= 150_000 else 4096
-        tile = max(base, (target // base) * base)
-        need = max(-(-n // ndev), h)       # minimal rows-per-device
-        tile = min(tile, -(-need // base) * base)  # never coarser than a shard
-        L = -(-need // tile) * tile
-        return tile, ndev * L
-
-    def _maybe_pretile(self, offsets, data):
-        """Pre-tile for the per-shard windowed Pallas kernel
-        (`partitioned_spmv_dia_pretiled`) — same routing rules as the
-        single-chip version, with the device-aligned padding."""
-        kind = self.cfg.krylov.spmv
-        if kind != "pallas" and (
-            kind == "xla"
-            or data.dtype not in (jnp.float32, jnp.bfloat16)
-            or jax.default_backend() != "tpu"
-        ):
-            return data
-        if kind in ("auto", "plane") and data.nbytes <= 4 * 1024 * 1024:
-            return data
-        from navierstokes_tpu.ops.pallas_dia import pretile_dia
-
-        tile, n_pad = self._dist_layout(offsets)
-        n = data.shape[1]
-        data_p = jnp.pad(data, ((0, 0), (0, n_pad - n)))
-        return pretile_dia(data_p, n_pad, tile=tile)
-
-    def _plane_layout(self, nb: int, node_offsets: tuple):
-        """(tile, nbp) for the distributed component-plane layout: whole
-        node tiles and whole aggregates per device, node halo fits."""
+    def _plane_layout(self, nb: int, node_offsets: tuple) -> int:
+        """Padded node count nbp for the distributed component-plane layout:
+        every device holds the same number of nodes, whole aggregates, and
+        a node slice at least as wide as the halo."""
         h = max(max(abs(d) for d in node_offsets), 1)
-        ndev = self.n_devices
         agg = self.cfg.krylov.coarse_agg
-        base = math.lcm(agg, self._granule())
-        target = self._plane_tile(nb)
-        tile = max(base, (target // base) * base)
-        need = max(-(-nb // ndev), h)      # minimal nodes-per-device
-        tile = min(tile, -(-need // base) * base)
-        Lb = -(-need // tile) * tile
-        return tile, ndev * Lb
+        need = max(-(-nb // self.n_devices), h)    # minimal nodes-per-device
+        return self.n_devices * (-(-need // agg) * agg)
+
+    def _ensure_prepared(self):
+        """Prepare as the single-device solver does, then place every step
+        operand on the device mesh: component-plane arrays (last axis = the
+        padded node count) sharded along the nodes, everything else
+        replicated — no step operand stays on one device, so the step moves
+        no operator bytes between devices."""
+        if self._prepared:
+            return
+        super()._ensure_prepared()
+        prep = self._exact_prep_val if self.cfg.jacobian == "exact" else None
+        nbp = prep[7] if prep is not None and prep[0] == "tlp" else None
+        ndev = self.n_devices
+
+        def place(a):
+            if not isinstance(a, jax.Array) or \
+                    len(a.sharding.device_set) == ndev:
+                return a
+            if nbp is not None and a.ndim and a.shape[-1] == nbp:
+                spec = P(*([None] * (a.ndim - 1)), self.axis)
+            else:
+                spec = P()
+            return jax.device_put(a, NamedSharding(self.device_mesh, spec))
+
+        for key in self._step_consts:
+            self._consts[key] = jax.tree_util.tree_map(place,
+                                                       self._consts[key])
+        if prep is not None:
+            self._exact_prep_val = _merge_prep(self._prep_static,
+                                               self._consts["prep"])
+        if "res_A" in self._consts:
+            self._res_A = self._consts["res_A"]
+            self._res_M = self._consts["res_M"]
 
     def _prepare_operator_dia(self, dia_data):
         if self._plane_mode() and self.cfg.krylov.coarse_basis == "linear":
             raise ValueError(
                 "coarse_basis='linear' is single-chip only (its weighted "
-                "restriction is not implemented per shard; it is also a "
-                "measured loss at scale — benchlogs/transient_scaling.txt)"
+                "restriction is not implemented per shard)"
             )
         return super()._prepare_operator_dia(dia_data)
 
@@ -244,27 +213,19 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
         return P_ * L
 
     def _shard_spmv(self, offsets, data, x):
-        """Per-shard SpMV dispatch: the pre-tiled Pallas kernel when the
-        operator was pretiled (3-D), the XLA shifted-multiply-add fallback
-        otherwise.  The distributed analog of `NavierStokesSolver._spmv`."""
-        dmesh, ax, ndev = self.device_mesh, self.axis, self.n_devices
-        if data.ndim == 3:
-            return partitioned_spmv_dia_pretiled(
-                dmesh, ax, offsets, data, x, ndev
-            )
-        return partitioned_spmv_dia(dmesh, ax, offsets, data, x, ndev)
+        """Per-shard scalar-DIA SpMV behind one halo exchange."""
+        return partitioned_spmv_dia(self.device_mesh, self.axis, offsets,
+                                    data, x, self.n_devices)
 
     def shard_kernel_name(self) -> str:
-        """Which per-shard SpMV implementation the prepared operator will
-        dispatch to (the external contract `dryrun_multichip` prints)."""
+        """Which per-shard SpMV the prepared operator dispatches to (the
+        contract `dryrun_multichip` prints): "plane_xla" for the
+        component-plane layout, "dia_xla" for scalar DIA."""
         self._ensure_prepared()
         prep = self._exact_prep_val if self.cfg.jacobian == "exact" else None
         if prep is None:
-            return "xla_dia(per-iteration prep)"
-        if prep[0] == "tlp":
-            return "plane_pallas"
-        data = prep[2]
-        return "pretiled_pallas" if data.ndim == 3 else "xla_dia"
+            return "dia_xla(per-iteration prep)"
+        return "plane_xla" if prep[0] == "tlp" else "dia_xla"
 
     def _solve_prepared(self, prep, rhs, solver_cfg):
         if prep[0] == "tlp":
@@ -274,12 +235,10 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
         _, s_offsets, s_data, invd_offsets, invd_data = prep
         halo = max(max(abs(d) for d in s_offsets), 1)
         n = self.disc.ndof
-        pretiled = s_data.ndim == 3
-        n_pad = (s_data.shape[0] * s_data.shape[2] if pretiled
-                 else self._pad_n(halo))
+        n_pad = self._pad_n(halo)
         pad = n_pad - n
 
-        s_data_p = s_data if pretiled else jnp.pad(s_data, ((0, 0), (0, pad)))
+        s_data_p = jnp.pad(s_data, ((0, 0), (0, pad)))
         invd_p = jnp.pad(invd_data, ((0, 0), (0, pad)))
         b = jnp.pad(rhs, (0, pad))
         order = self.cfg.krylov.neumann_order
@@ -304,12 +263,9 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
 
         b_eff = neumann(apply_Dinv(b))
 
-        if solver_cfg.method == "ca_gmres" and order == 0 and not pretiled:
+        if solver_cfg.method == "ca_gmres" and order == 0:
             # Communication-avoiding s-step GMRES: the whole basis from ONE
             # k*halo-deep exchange (parallel.partitioned_spmv_dia_power).
-            # (The power kernel slices row-major data; with a pretiled
-            # operator ca_gmres falls through to the chained-matvec basis
-            # below, like the tl path.)
             from navierstokes_tpu.parallel.partitioned import (
                 partitioned_spmv_dia_power,
             )
@@ -335,20 +291,11 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
                 )
             # basis too deep for the partition: fall through to gmres
 
-        if solver_cfg.method == "ca_gmres" and pretiled:
-            from navierstokes_tpu.solvers.sstep import ca_gmres
-
-            res = ca_gmres(
-                matvec, b_eff, basis=min(solver_cfg.restart, 16),
-                rtol=solver_cfg.rtol, atol=solver_cfg.atol,
-                maxiter=solver_cfg.maxiter,
-            )
-        else:
-            res = gmres(
-                matvec, b_eff, restart=solver_cfg.restart,
-                rtol=solver_cfg.rtol, atol=solver_cfg.atol,
-                maxiter=solver_cfg.maxiter,
-            )
+        res = gmres(
+            matvec, b_eff, restart=solver_cfg.restart,
+            rtol=solver_cfg.rtol, atol=solver_cfg.atol,
+            maxiter=solver_cfg.maxiter,
+        )
         return GMRESResult(
             x=res.x[:n], iters=res.iters, resnorm=res.resnorm,
             converged=res.converged,
@@ -372,17 +319,11 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
         agg = cs.agg_size
         halo = max(max(abs(d) for d in a_offsets), 1)
         n = self.disc.ndof
-        pretiled = a_data.ndim == 3
-        if pretiled:
-            # _dist_layout guaranteed tile % (4*agg) == 0 at prepare time
-            n_pad = a_data.shape[0] * a_data.shape[2]
-            assert n_pad % (4 * agg * self.n_devices) == 0
-        else:
-            n_pad = self._pad_n(halo, multiple=4 * agg)
+        n_pad = self._pad_n(halo, multiple=4 * agg)
         pad = n_pad - n
         dmesh, ax, ndev = self.device_mesh, self.axis, self.n_devices
 
-        a_data_p = a_data if pretiled else jnp.pad(a_data, ((0, 0), (0, pad)))
+        a_data_p = jnp.pad(a_data, ((0, 0), (0, pad)))
         invd_p = jnp.pad(invd_data, ((0, 0), (0, pad)))
         b = jnp.pad(rhs, (0, pad))
         # Coarse DoF count over the padded rows; extra (padding) aggregates
@@ -412,7 +353,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
                 # local restriction: sum each aggregate, per component —
                 # flat-matmul form (no (..., 4)-minor temps: XLA tile-pads
                 # those 32x, see solvers/coarse._mix_matrix)
-                # HIGHEST: MXU default bf16 operand rounding damages
+                # HIGHEST: reduced-precision operand rounding damages
                 # the coarse correction (see solvers.coarse.restrict)
                 hp = jax.lax.Precision.HIGHEST
                 mix = _mix_matrix(agg, r_loc.dtype)
@@ -518,10 +459,10 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
         """Distributed two-level solve in the COMPONENT-PLANE layout.
 
         The flagship single-chip layout (`ops/plane_dia.py`) kept intact
-        under distribution: nodes are row-partitioned with whole kernel
-        tiles and whole aggregates per device (`_plane_layout`), the whole
-        Krylov space stays plane-major, each matvec is one (4, halo)
-        ppermute exchange + the per-shard plane Pallas kernel, D^{-1} is 16
+        under distribution: nodes are row-partitioned with whole aggregates
+        per device (`_plane_layout`), the whole Krylov space stays
+        plane-major, each matvec is one (4, halo) ppermute exchange + the
+        per-shard plane SpMV, D^{-1} is 16
         local elementwise plane multiplies, and the coarse correction is a
         local reshape-sum restriction + one tiny all_gather + a row-sharded
         dense solve (or a replicated multilevel cycle) + local broadcast
@@ -537,7 +478,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
         agg = cs.agg_size
         dmesh, ax, ndev = self.device_mesh, self.axis, self.n_devices
         Lb = nbp // ndev
-        assert Lb % agg == 0 and Lb % p4.shape[3] == 0, (Lb, agg, p4.shape)
+        assert Lb % agg == 0, (Lb, agg)
         nc_pad = 4 * (nbp // agg)
         hp = jax.lax.Precision.HIGHEST
 

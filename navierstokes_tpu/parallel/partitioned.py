@@ -1,14 +1,14 @@
-"""Row-partitioned block-ELL operator with explicit ICI halo exchange.
+"""Row-partitioned block-ELL operator with explicit halo exchange.
 
 The distributed-memory layer the reference never had (SURVEY.md §2.3: MPI is
-linked but unexercised).  TPU-native design:
+linked but unexercised).  Design:
 
 - nodes are RCM/band ordered, block-rows split into `n_devices` contiguous
   chunks of L rows each (padded with identity rows),
 - the band property bounds every chunk's column references to its own rows
   plus `halo` rows on each side, so one bidirectional `lax.ppermute` per SpMV
-  moves exactly the 2*halo boundary rows over ICI — the minimum communication
-  for a banded operator,
+  moves exactly the 2*halo boundary rows between devices — the minimum
+  communication for a banded operator,
 - column indices are stored as position-invariant offsets `delta = col - row`
   (|delta| <= halo), so ghost rows received from a neighbor use the same
   gather arithmetic as own rows — no per-partition rebasing tables,
@@ -21,7 +21,8 @@ Matrix powers: `partitioned_spmv_power` computes A^k x with ONE k*halo-deep
 exchange of x *and* of the boundary operator rows, then k local sweeps that
 redundantly compute a shrinking ghost region — the communication-avoiding
 A^k x of the reference's mpk suite (`Generate1stlayer`,
-`mpk/SpMVmulti0.cpp:22-40`) re-expressed as ghost-layer tiling over ICI.
+`mpk/SpMVmulti0.cpp:22-40`) re-expressed as ghost-layer tiling across
+devices.
 """
 
 from __future__ import annotations
@@ -131,7 +132,7 @@ def partitioned_spmv(
     values: jnp.ndarray,          # (nb_pad, S, 4, 4)
     x: jnp.ndarray,               # (4 * nb_pad,)
 ) -> jnp.ndarray:
-    """y = A x with one bidirectional halo exchange over ICI."""
+    """y = A x with one bidirectional halo exchange."""
     n_dev, H, L = part.n_devices, part.halo, part.rows_per_dev
 
     def body(delta_loc, vals_loc, x_loc):
@@ -139,7 +140,8 @@ def partitioned_spmv(
         q = jax.lax.broadcasted_iota(jnp.int32, (L, 1), 0)
         gather_at = q + delta_loc + H                   # (L, S), in [0, L+2H)
         g = xw[gather_at]                               # (L, S, 4)
-        return jnp.einsum("rsab,rsb->ra", vals_loc, g)
+        return jnp.einsum("rsab,rsb->ra", vals_loc, g,
+                          precision=jax.lax.Precision.HIGHEST)
 
     y4 = jax.shard_map(
         body,
@@ -188,99 +190,45 @@ def partitioned_spmv_dia(
     )(data, x)
 
 
-def partitioned_spmv_dia_pretiled(
-    mesh: Mesh,
-    axis: str,
-    offsets: tuple,
-    data3: jnp.ndarray,    # (n_devices*grid_loc, K, tile) from pretile_dia
-    x: jnp.ndarray,        # (n_pad,)
-    n_devices: int,
-    interpret=None,
-) -> jnp.ndarray:
-    """Scalar-DIA SpMV over a device mesh with the PRE-TILED Pallas kernel
-    per shard: one bidirectional halo exchange, then each device runs the
-    same windowed double-buffered-DMA kernel as the single-chip flagship
-    (`ops.pallas_dia.spmv_dia_pallas`) on its contiguous row range — the
-    kernel-injection seam extended to the distributed operator (the
-    reference injects its AVX2 MatMult into every operator it owns,
-    `src/solve_newton.c:864-879`).
-
-    Requires rows-per-device to be whole tiles (the distributed layout in
-    `DistributedNavierStokesSolver._dist_layout` guarantees it) and
-    halo <= rows-per-device.  Padding rows carry zero data columns.
-    """
-    from navierstokes_tpu.ops.pallas_dia import spmv_dia_pallas
-
-    grid, K, tile = data3.shape
-    n_pad = grid * tile
-    if grid % n_devices:
-        raise ValueError("tile grid must divide evenly across devices")
-    L = n_pad // n_devices
-    h = max(max(abs(d) for d in offsets), 1)
-    if h > L:
-        raise ValueError(f"scalar halo {h} exceeds rows-per-device {L}")
-
-    def body(d3_loc, x_loc):
-        xw = _exchange(x_loc, h, axis, n_devices)       # (L + 2h,)
-        return spmv_dia_pallas(
-            offsets, d3_loc, xw, n=L, x_prehalo=True, interpret=interpret
-        )
-
-    # check_vma=False: pallas_call's out_shape carries no varying-mesh-axes
-    # annotation, which the default shard_map validation rejects.
-    return jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(axis, None, None), P(axis)),
-        out_specs=P(axis),
-        check_vma=False,
-    )(data3, x)
-
-
 def partitioned_spmv_plane(
     mesh: Mesh,
     axis: str,
     node_offsets: tuple,
-    p4: jnp.ndarray,       # (n_devices*grid_loc, 4, NT, tile) pretiled planes
-    x: jnp.ndarray,        # (4 * nbp,) flat plane-major
+    planes: jnp.ndarray,   # (n_out, NT, nbp) plane data, nodes sharded
+    x: jnp.ndarray,        # (n_in * nbp,) flat plane-major
     n_devices: int,
-    interpret=None,
 ) -> jnp.ndarray:
     """Component-plane SpMV over a device mesh: nodes are row-partitioned,
-    each device holds its slice of ALL FOUR planes, and one bidirectional
-    ppermute of the node halo (per plane, batched as a (4, h) exchange)
-    feeds the per-shard plane Pallas kernel (`ops.plane_dia`).  This keeps
-    the flagship 0.74x-bytes layout intact under distribution — vectors stay
-    plane-major end to end; only the halo moves over ICI.
+    each device holds its slice of ALL planes, and one bidirectional
+    ppermute of the node halo (per plane, batched as an (n_in, h) exchange)
+    feeds the per-shard plane SpMV (`ops.plane_dia.spmv_planes`).  This
+    keeps the 0.74x-bytes layout intact under distribution — vectors stay
+    plane-major end to end; only the halo moves between devices.
     """
-    from navierstokes_tpu.ops.plane_dia import spmv_plane_pallas
+    from navierstokes_tpu.ops.plane_dia import plane_halo, spmv_planes
 
-    grid, four, nt, tile = p4.shape
-    nbp = grid * tile
-    if grid % n_devices:
-        raise ValueError("tile grid must divide evenly across devices")
+    n_out, nt, nbp = planes.shape
+    n_in = nt // len(node_offsets)
+    if nbp % n_devices:
+        raise ValueError("padded node count must divide evenly across devices")
     Lb = nbp // n_devices
-    h = max(max(abs(d) for d in node_offsets), 1)
+    h = plane_halo(node_offsets)
     if h > Lb:
         raise ValueError(f"node halo {h} exceeds nodes-per-device {Lb}")
 
-    def body(p4_loc, x_loc):
-        # x_loc: (4, Lb).  Exchange along the node axis for all 4 planes at
+    def body(p_loc, x_loc):
+        # x_loc: (n_in, Lb).  Exchange along the node axis for all planes at
         # once (leading-axis exchange on the transposed view).
-        xw = _exchange(x_loc.T, h, axis, n_devices).T   # (4, Lb + 2h)
-        y = spmv_plane_pallas(
-            node_offsets, p4_loc, xw.reshape(-1), nb=Lb, x_prehalo=True,
-            interpret=interpret,
-        )
-        return y.reshape(4, Lb)
+        xw = _exchange(x_loc.T, h, axis, n_devices).T   # (n_in, Lb + 2h)
+        y = spmv_planes(node_offsets, p_loc, xw.reshape(-1), x_prehalo=True)
+        return y.reshape(n_out, Lb)
 
     y = jax.shard_map(
         body,
         mesh=mesh,
-        in_specs=(P(axis, None, None, None), P(None, axis)),
+        in_specs=(P(None, None, axis), P(None, axis)),
         out_specs=P(None, axis),
-        check_vma=False,           # pallas out_shape has no vma annotation
-    )(p4, x.reshape(4, nbp))
+    )(planes, x.reshape(n_in, nbp))
     return y.reshape(-1)
 
 
@@ -400,7 +348,8 @@ def partitioned_spmv_power(
         own = []
         for s in range(k):
             g = cur[gather_at]                                  # (ext-2H, S, 4)
-            y = jnp.einsum("rsab,rsb->ra", vals_ext, g)
+            y = jnp.einsum("rsab,rsb->ra", vals_ext, g,
+                           precision=jax.lax.Precision.HIGHEST)
             if shifts is not None:
                 y = y - shifts[s] * cur[H:ext - H]
             y = jnp.pad(y, ((H, H), (0, 0)))                    # back to (ext, 4)
@@ -544,7 +493,10 @@ def partitioned_assemble_dia(
                 mm = jax.lax.dynamic_slice_in_dim(m2, s, chunk)
                 return acc.at[mm.reshape(-1)].add(blocks.reshape(-1))
 
-            flat = jax.lax.fori_loop(0, n_chunks, cbody, flat)
+            # the carry becomes device-varying after the first scatter
+            flat = jax.lax.fori_loop(
+                0, n_chunks, cbody, jax.lax.pcast(flat, (axis,), to="varying")
+            )
         loc = flat[:-1].reshape(K, Lh)
         own, overflow = loc[:, :L], loc[:, L:]
         if n_dev > 1:

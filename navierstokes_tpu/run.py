@@ -23,13 +23,12 @@ import time
 
 def default_f32_krylov():
     """The flagship f32 Krylov defaults (single source of truth: run.py's
-    f32 path AND the driver contract `__graft_entry__.dryrun_multichip`
-    assert against this — VERDICT r3 item 8).  coarse_agg stays None = the
-    measured per-size auto schedule (config.auto_coarse_agg), and
-    preconditioner="auto" = the measured per-size preconditioner schedule
-    (config.auto_preconditioner: two_level+coarse_cheby=3 at mmesh scale,
-    pressure-Schur+velocity-Chebyshev above — the round-5 winners at every
-    size, benchlogs/transient_scaling.txt)."""
+    f32 path, chip_smoke.py AND `__graft_entry__.dryrun_multichip` assert
+    against this).  coarse_agg stays None = the per-size auto schedule
+    (config.auto_coarse_agg), and preconditioner="auto" = the per-size
+    preconditioner schedule (config.auto_preconditioner: two_level +
+    coarse_cheby=3 at mmesh scale, pressure-Schur + velocity-Chebyshev
+    above)."""
     from navierstokes_tpu.config import SolverConfig
 
     return SolverConfig(rtol=1e-5, atol=1e-6, maxiter=1000,
@@ -38,7 +37,7 @@ def default_f32_krylov():
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(description="TPU-native transient NS solver")
+    p = argparse.ArgumentParser(description="Transient Navier-Stokes solver")
     p.add_argument("--msh", help="Gmsh 2.2 mesh file")
     p.add_argument("--matrix-id", type=int,
                    help="synthetic scaling-series mesh 1-10")
@@ -53,7 +52,8 @@ def main(argv=None):
                    help="override number of steps")
     p.add_argument("--delta", type=float, default=0.05)
     p.add_argument("--dtype", default=None,
-                   help="float32 (TPU default) / float64 (CPU default)")
+                   help="float32 (accelerator default) / float64 (CPU "
+                        "default)")
     p.add_argument("--cpu", action="store_true", help="force CPU backend")
     p.add_argument("--save", action="store_true")
     p.add_argument("--save-dir", default="res")
@@ -68,7 +68,7 @@ def main(argv=None):
                    help="print an event-log report at the end")
     # Perf knobs (the `-matmult_variant`/`-avx2` analog,
     # `src/kernels/variant_selector.c:3-15`): sweepable without code edits.
-    p.add_argument("--spmv", choices=["auto", "xla", "pallas", "plane"], default=None,
+    p.add_argument("--spmv", choices=["auto", "xla", "plane"], default=None,
                    help="SpMV kernel routing (default: auto)")
     p.add_argument("--preconditioner", default=None,
                    choices=["auto", "block_jacobi", "two_level", "schur",
@@ -111,9 +111,6 @@ def main(argv=None):
                         "B^T velocity correction)")
     p.add_argument("--neumann-order", type=int, default=None,
                    help="Neumann-series boost of block-Jacobi")
-    p.add_argument("--cgs2", default=None, choices=["xla", "pallas", "pallas_comp"],
-                   help="GMRES orthogonalization backend (pallas = fused "
-                        "3-sweep projection with a dynamic row bound)")
     p.add_argument("--deflation-k", type=int, default=None,
                    help="GCRO recycled-subspace size (harmonic Ritz "
                         "vectors of the constant preconditioned operator; "
@@ -132,8 +129,11 @@ def main(argv=None):
 
     import jax
 
+    from navierstokes_tpu.utils.compile_cache import enable_compile_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
     backend = jax.default_backend()
     dtype = args.dtype or ("float64" if backend == "cpu" else "float32")
     if dtype == "float64":
@@ -163,16 +163,12 @@ def main(argv=None):
     if dtype == "float32":
         # du_tol=inf: with the linear residual, the |F| criterion alone
         # determines convergence; the |du| test only adds Newton iterations
-        # whose updates are already below tolerance.  Measured best on one
-        # v5e chip at 121k DoF: ~144 ms/step (newton 2, ~100 GMRES iters).
+        # whose updates are already below tolerance.
         newton = NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
                               du_tol=float("inf"))
-        # two_level + component-plane layout measured best on one v5e at
-        # 117k DoF: 11.8 ms/step (newton 2, 69 GMRES iters, 0.17 ms/iter)
-        # vs 16.4 ms for the scalar-DIA layout at identical counts — see
-        # benchlogs/transient_scaling.txt post-fix rows.  coarse_agg=None =
-        # the measured per-size schedule (48/128/256 — config.
-        # auto_coarse_agg), so the tuned step times ARE the defaults.
+        # Component-plane layout + the per-size preconditioner and
+        # aggregate schedules (config.auto_preconditioner /
+        # auto_coarse_agg).
         krylov = default_f32_krylov()
         stokes = default_f32_krylov()
     else:
@@ -200,7 +196,6 @@ def main(argv=None):
         ("schur_v_cheby", args.schur_v_cheby),
         ("schur_shape", args.schur_shape),
         ("neumann_order", args.neumann_order),
-        ("cgs2", args.cgs2),
         ("deflation_k", args.deflation_k),
         ("deflation_arnoldi", args.deflation_arnoldi),
         ("restart", args.restart),

@@ -13,6 +13,8 @@ from typing import Callable, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
+HP = jax.lax.Precision.HIGHEST
+
 
 class CGResult(NamedTuple):
     x: jnp.ndarray
@@ -40,7 +42,7 @@ def cg(
 
     r0 = b - matvec(x0)
     z0 = M(r0)
-    rz0 = jnp.dot(r0, z0)
+    rz0 = jnp.dot(r0, z0, precision=HP)
     norm0 = jnp.sqrt(jnp.abs(rz0))
     tol = jnp.maximum(rtol * norm0, atol)
 
@@ -51,11 +53,11 @@ def cg(
     def body(state):
         x, r, p, rz, iters, _ = state
         Ap = matvec(p)
-        alpha = rz / jnp.dot(p, Ap)
+        alpha = rz / jnp.dot(p, Ap, precision=HP)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = jnp.dot(r, z)
+        rz_new = jnp.dot(r, z, precision=HP)
         beta = rz_new / rz
         p = z + beta * p
         return x, r, p, rz_new, iters + 1, jnp.sqrt(jnp.abs(rz_new))

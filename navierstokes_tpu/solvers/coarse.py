@@ -5,15 +5,16 @@ Block-Jacobi kills only local error; the global (low-frequency) error on a
 a coarse space: aggregate nodes (contiguous index ranges — spatially local
 after band ordering), build the Galerkin coarse operator A_c = R A P with
 piecewise-constant-per-component prolongation, invert it DENSELY once (a few
-thousand DoF — one small MXU-friendly matmul per apply), and combine
+thousand DoF — one small dense matmul per apply), and combine
 multiplicatively with block-Jacobi:
 
     z  = P A_c^{-1} R r                      (coarse correction)
     z += D^{-1} (r - A z)                    (local smoothing)
 
-This is a TPU-first replacement for the reference's ILU(k) strength: the
-sequential triangular solves become one dense (nc x nc) matvec + one SpMV,
-both batched/regular.  No analog exists in the reference (single-level ILU).
+This is an accelerator-friendly replacement for the reference's ILU(k)
+strength: the sequential triangular solves become one dense (nc x nc) matvec +
+one SpMV, both batched/regular. No analog exists in the reference (single-level
+ILU).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ class CoarseSpace:
 
     Aggregates are CONTIGUOUS equal-size index ranges (band-ordered mesh =>
     spatial blocks), so restriction/prolongation are pure reshape-reduce /
-    broadcast — no gathers or segment sums on the TPU hot path.
+    broadcast — no gathers or segment sums on the hot path.
     """
 
     agg_of_node: np.ndarray      # (nb,) aggregate id per node
@@ -78,12 +79,11 @@ def _mix_matrix(agg: int, dtype):
 def restrict(cs: CoarseSpace, r):
     """R r: per-component sum over each aggregate. (4*nb,) -> (nc,).
 
-    precision=HIGHEST is load-bearing: the TPU MXU default rounds BOTH
-    matmul operands to bf16, i.e. the residual values are truncated to 8
-    mantissa bits BEFORE the aggregate sums.  Measured on v5e at m6: the
-    damaged coarse correction costs 2.6x linear iterations and an extra
-    Newton iteration per step (181 vs 69 lin iters — see
-    benchlogs/transient_scaling.txt round-3 precision note).  These are
+    precision=HIGHEST is load-bearing: a reduced default matmul precision
+    (TF32 on the GPU, bf16 passes elsewhere) truncates the residual values
+    BEFORE the aggregate sums, and the damaged coarse correction costs
+    linear iterations and Newton iterations per step (181 vs 69 linear
+    iterations at m6 with bf16 operand rounding).  These are
     bandwidth-bound tall-skinny GEMVs; exact f32 passes are free."""
     r2 = jnp.pad(r, (0, 4 * (cs.nb_pad - cs.nb))).reshape(
         cs.n_agg, 4 * cs.agg_size
@@ -112,8 +112,7 @@ def restrict_planes(cs: CoarseSpace, rp, nbp: int):
     Plane layout makes restriction a pure reshape-sum per plane; the
     component-interleave happens on the COARSE vector (nc <= ~16k), where a
     transpose costs nothing — this replaces two O(n) fine-vector layout
-    conversions per preconditioner apply that measured ~52 us at 117k rows
-    (benchlogs/gmres_decomposition.txt round-3 plane rows)."""
+    conversions per preconditioner apply."""
     assert cs.nb_pad <= nbp, (cs.nb_pad, nbp)
     r2 = rp.reshape(4, nbp)[:, :cs.nb_pad]
     # (rows past nb are zero by construction throughout the plane solve)
@@ -224,15 +223,13 @@ def coarse_operator_inverse_dia(
     Whenever `data` is concrete (the prep runs eagerly — the default since
     the eager-stokes restructure), the inverse is computed on the HOST in
     f64, for two reasons:
-      * accuracy: the saddle-point coarse matrix is ill-conditioned and the
-        on-chip f32 LU inverse carries O(cond * eps_f32) error — measured on
-        v5e at m6 (nc=2448) as a preconditioner-quality lottery: separately
-        compiled preps produced inverses differing by ~0.26%, and GMRES
-        counts of 182 vs 69 iters/step for the SAME system (see
-        benchlogs/transient_scaling.txt round-3 coarse-inverse note);
-      * memory: XLA's on-chip LU inverse pipeline materializes O(nc/128)
-        blocked triangular-solve temps — ~18 GB of HLO temp at nc=10648
-        (measured compile OOM at 511k rows, agg=48).
+      * accuracy: the saddle-point coarse matrix is ill-conditioned and an
+        on-device f32 LU inverse carries O(cond * eps_f32) error — at m6
+        (nc=2448) separately compiled preps produced inverses differing by
+        ~0.26%, and GMRES counts of 182 vs 69 iters/step for the SAME
+        system;
+      * memory: an on-device LU inverse pipeline materializes blocked
+        triangular-solve temps of many GB at nc ~ 10^4.
     Under jit there is no host escape on this backend (no pure_callback), so
     traced calls fall back to the on-chip f32 inverse."""
     ac = coarse_dense_matrix(cs, offsets, data, shift=shift)
@@ -305,7 +302,7 @@ def build_linear_weights(cs: CoarseSpace, coords: np.ndarray) -> np.ndarray:
     functions per aggregate approximates smooth error to O(h_agg^2) instead
     of the piecewise-constant basis's O(h_agg), attacking the measured
     coarse-space thinning at scale (69 -> 117 -> 253 lin iters/step over
-    117k/511k/2.35M rows at fixed nc, benchlogs/transient_scaling.txt):
+    117k/511k/2.35M rows at fixed nc):
     with 4 modes per aggregate, 4x-larger aggregates give the SAME dense
     nc with a richer space.  Padding rows (>= nb) and rank-deficient modes
     (degenerate aggregate geometry) carry zero weight; the Galerkin
@@ -447,13 +444,13 @@ def smoothed_coarse_dense_matrix(
     Piecewise-constant aggregation thins with mesh size (253 vs 69 outer
     iterations/step at 2.35M vs 117k rows at fixed aggregate geometry);
     Jacobi-smoothing the basis is the classic SA cure, and on this layout it
-    is TPU-free: P is never materialized — the apply side adds one SpMV +
+    is cheap: P is never materialized — the apply side adds one SpMV +
     one D^{-1} per coarse correction (model._prep_operators), and this
     Galerkin product reduces to node-offset-pair block products plus
     strided diagonal adds (contiguous aggregates make every coarse row
     index an arithmetic progression in the aggregate id).
 
-    MEASURED NEGATIVE RESULT (round 3, benchlogs/transient_scaling.txt):
+    MEASURED NEGATIVE RESULT:
     on the indefinite NS saddle-point operator the smoothed basis makes the
     two-level preconditioner ~3x WORSE in f64 at matrix 3 and non-convergent
     at 117k rows for every omega in {0.5, 0.6667, 1.0} — classic SA theory
@@ -555,7 +552,6 @@ def coarse_operator_inverse(
     )
     if shift:
         Ac = Ac + shift * jnp.eye(nc, dtype=Ac.dtype)
-    # Dense inverse in float32 can be fragile; invert in f64 off-TPU dtypes
-    # is not available on-chip, so solve against identity via LU (jnp.linalg
-    # uses LAPACK-on-CPU / custom-call-on-TPU, both fine at this size).
+    # Dense inverse via LU against the identity (jnp.linalg: LAPACK on the
+    # CPU, cuSOLVER on the GPU); fine at this size.
     return jnp.linalg.inv(Ac)

@@ -1,8 +1,8 @@
 """Krylov subspace recycling: GCRO-style spectral deflation.
 
 The round-3 review's last scaling cost is ITERATION-COUNT growth (mean lin
-69 -> 117 -> 148 -> 253 over 117k -> 2.35M rows at the HBM roofline per
-iteration).  The exact-Jacobian operator is CONSTANT across Newton
+69 -> 117 -> 148 -> 253 over 117k -> 2.35M rows, each iteration a
+memory-bound sweep).  The exact-Jacobian operator is CONSTANT across Newton
 iterations AND time steps — the ideal case for recycling: compute an
 approximate near-kernel subspace ONCE at operator preparation, then solve
 every system in the complement.

@@ -32,6 +32,25 @@ class GMRESResult(NamedTuple):
 def _identity(x):
     return x
 
+
+def cgs2_project(V, w, k):
+    """CGS2 (classical Gram-Schmidt, twice) of w against rows 0..k of V.
+
+    V is the (m+1, n) Krylov basis buffer; rows beyond k are masked out of
+    both passes, so h[k+1:] is exactly zero.  Each pass is two GEMVs over
+    the whole buffer instead of a sequential chain of k dots/axpys.
+    precision=HIGHEST: a reduced default matmul precision (TF32 on the
+    GPU) would orthogonalize against a truncated basis.  Returns
+    (w - V^T h, h)."""
+    hp = jax.lax.Precision.HIGHEST
+    active = (jnp.arange(V.shape[0]) <= k).astype(w.dtype)
+    h1 = jnp.matmul(V, w, precision=hp) * active
+    w = w - jnp.matmul(V.T, h1, precision=hp)
+    h2 = jnp.matmul(V, w, precision=hp) * active
+    w = w - jnp.matmul(V.T, h2, precision=hp)
+    return w, h1 + h2
+
+
 def gmres(
     matvec: Callable,
     b: jnp.ndarray,
@@ -42,36 +61,15 @@ def gmres(
     rtol: float = 1e-10,
     atol: float = 1e-12,
     maxiter: int = 2000,
-    cgs2_kernel: bool = False,
-    cgs2_tile: int = 4096,
-    cgs2_compensated: bool = False,
 ) -> GMRESResult:
     """NOTE: deliberately not jitted here — `matvec`/`precond` typically close
     over traced operator values, so callers jit the enclosing step function
-    (e.g. the whole Newton iteration) and this trace inlines into it.
-
-    cgs2_kernel=True routes the orthogonalization through the fused Pallas
-    projection (`ops.cgs2_pallas.cgs2_project`: 3 sweeps over the live rows
-    only, vs 4 full-buffer XLA GEMVs) when the layout permits (n a
-    `cgs2_tile` multiple — the flagship plane/pretiled layouts guarantee
-    it); silently falls back to the XLA path otherwise (static decision)."""
+    (e.g. the whole Newton iteration) and this trace inlines into it."""
     n = b.shape[0]
     dtype = b.dtype
     m = restart
     M = precond or _identity
     x0 = jnp.zeros_like(b) if x0 is None else x0
-
-    use_kernel = bool(cgs2_kernel) and n % cgs2_tile == 0
-    # Kernel path: pad the basis buffer rows to the f32 sublane tile (8) so
-    # the kernel's dynamic row-block offsets are provably aligned.  The
-    # extra rows stay identically zero (never written: k < m).  The buffer
-    # is kept TILED (grid, m1p, tile) so each kernel window DMA is one
-    # contiguous block (row-major windows are R strided segments, measured
-    # ~490 GB/s effective vs ~680 streaming — benchlogs/
-    # gmres_decomposition.txt round 4); row reads/writes against the tiled
-    # buffer are tiny (one (n,)-vector each) dynamic slices on axis 1.
-    m1p = -(-(m + 1) // 8) * 8 if use_kernel else m + 1
-    vgrid = n // cgs2_tile
 
     def pre_residual(x):
         return M(b - matvec(x))
@@ -91,12 +89,7 @@ def gmres(
         beta = jnp.linalg.norm(r)
 
         v0 = r / jnp.where(beta > 0, beta, 1.0)
-        if use_kernel:
-            V = jnp.zeros((vgrid, m1p, cgs2_tile), dtype=dtype)
-            V = V.at[:, 0, :].set(v0.reshape(vgrid, cgs2_tile))
-        else:
-            V = jnp.zeros((m1p, n), dtype=dtype)
-            V = V.at[0].set(v0)
+        V = jnp.zeros((m + 1, n), dtype=dtype).at[0].set(v0)
         R = jnp.zeros((m, m), dtype=dtype)         # triangularized Hessenberg
         cs = jnp.zeros(m, dtype=dtype)
         sn = jnp.zeros(m, dtype=dtype)
@@ -109,54 +102,14 @@ def gmres(
 
         def inner_body(istate):
             V, R, cs, sn, g, k, _, _ = istate
-            if use_kernel:
-                z = jnp.int32(0)
-                vk = jax.lax.dynamic_slice(
-                    V, (z, k, z), (vgrid, 1, cgs2_tile)
-                ).reshape(n)
-            else:
-                vk = V[k]
-            w = M(matvec(vk))
-
-            # CGS2 (classical Gram-Schmidt, twice) against v_0..v_k: each
-            # pass is two fused GEMVs over the whole basis instead of a
-            # sequential chain of m dots/axpys — the TPU-friendly
-            # orthogonalization (rows > k of V are zero, mask for safety).
-            # precision=HIGHEST: the MXU default rounds operands to bf16,
-            # silently orthogonalizing against a truncated basis and
-            # reconstructing dx from truncated V (measured to cost extra
-            # iterations AND Newton steps on v5e — solvers.coarse.restrict
-            # has the numbers).  These GEMVs are HBM-bandwidth-bound
-            # (~726 GB/s measured), so exact f32 passes cost nothing.
-            #
-            # NOTE on active-row skipping (tried, LOST, reverted): CGS2's
-            # four GEMVs read the whole zero-padded (m+1, n) buffer every
-            # iteration even though only k+1 rows are live.  Skipping the
-            # dead rows via lax.cond was measured on v5e at 117k rows and
-            # lost BOTH ways: 8-row chunks (16 conds/iter) 17.4 ms/step,
-            # half-basis split (4 conds/iter) 14.8 ms/step, vs 11.8 ms for
-            # the plain full-buffer GEMVs — each cond is a fusion boundary
-            # whose fixed cost exceeds the ~35%/25% HBM-traffic saving at
-            # this size.  A Pallas GEMV with a scalar-prefetched row bound
-            # is the remaining option if CGS2 ever dominates again.
-            if use_kernel:
-                # Fused Pallas projection: identical algebra (h = h1 + h2,
-                # both passes against rows 0..k), ~0.38x the HBM traffic —
-                # the "Pallas GEMV with a scalar-prefetched row bound"
-                # promised above, landed as ops.cgs2_pallas.
-                from navierstokes_tpu.ops.cgs2_pallas import cgs2_project
-
-                w, hf = cgs2_project(V, w, k, tile=cgs2_tile,
-                                     compensated=cgs2_compensated)
-                h = hf[: m + 1]
-            else:
-                hp = jax.lax.Precision.HIGHEST
-                active = (jnp.arange(m + 1) <= k).astype(dtype)
-                h1 = jnp.matmul(V, w, precision=hp) * active
-                w = w - jnp.matmul(V.T, h1, precision=hp)
-                h2 = jnp.matmul(V, w, precision=hp) * active
-                w = w - jnp.matmul(V.T, h2, precision=hp)
-                h = h1 + h2
+            w = M(matvec(V[k]))
+            # NOTE on active-row skipping: CGS2's four GEMVs read the whole
+            # zero-padded (m+1, n) buffer every iteration even though only
+            # k+1 rows are live.  Skipping the dead rows with lax.cond puts
+            # a fusion boundary per branch in the loop; a GEMV with a
+            # dynamic row bound is the remaining option if CGS2 ever
+            # dominates.
+            w, h = cgs2_project(V, w, k)
             hk1 = jnp.linalg.norm(w)
             # One dynamic-update-slice on the loop-carried buffer; written
             # unconditionally (on breakdown the row is never read: k does
@@ -165,13 +118,7 @@ def gmres(
             # jnp.where(keep, V_next, V) would force a full (m+1, n) copy
             # plus a 3-buffer select every iteration.
             vnew = w / jnp.where(hk1 > 0, hk1, 1.0)
-            if use_kernel:
-                z = jnp.int32(0)
-                V = jax.lax.dynamic_update_slice(
-                    V, vnew.reshape(vgrid, 1, cgs2_tile), (z, k + 1, z)
-                )
-            else:
-                V = V.at[k + 1].set(vnew)
+            V = V.at[k + 1].set(vnew)
 
             # Apply accumulated rotations 0..k-1 to the new column h[0..k].
             # The pairwise updates form the first-order linear recurrence
@@ -248,13 +195,7 @@ def gmres(
         )
         gp = jnp.where(active, g[:m], 0.0)
         y = jax.scipy.linalg.solve_triangular(Rp, gp, lower=False)
-        hp = jax.lax.Precision.HIGHEST
-        if use_kernel:
-            dx = jnp.einsum(
-                "gmt,m->gt", V[:, :m, :], y, precision=hp
-            ).reshape(n)
-        else:
-            dx = jnp.matmul(V[:m].T, y, precision=hp)
+        dx = jnp.matmul(V[:m].T, y, precision=jax.lax.Precision.HIGHEST)
         x_new = x + dx
 
         resnorm = jnp.abs(g[k_end])

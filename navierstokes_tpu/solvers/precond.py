@@ -2,9 +2,9 @@
 
 The reference preconditions with ILU(k) + hand-vectorized block triangular
 solves (`src/solve_newton.c:1159-1162`, `src/kernels/baij4_solve*.c`).
-Sequential triangular solves are hostile to TPUs (SURVEY.md §7 "ILU parity"),
-so the TPU-first default is block-Jacobi built from batched exact 4x4 block
-inverses — every application is one batched 4x4 matvec on the VPU — optionally
+Sequential triangular solves are hostile to accelerators (SURVEY.md §7 "ILU
+parity"), so the default is block-Jacobi built from batched exact 4x4 block
+inverses — every application is one batched elementwise 4x4 matvec — optionally
 wrapped in a truncated Neumann series to recover some of ILU's strength:
 
   M^{-1} = sum_{i<=order} (I - D^{-1} A)^i D^{-1}     (order 0 = plain Jacobi)
@@ -200,7 +200,7 @@ class ILU0Preconditioner:
 
     def __call__(self, r, transpose: bool = False):
         # Works inside jitted/while_loop'd solvers via a host callback (CPU
-        # oracle path only — never the TPU performance path).
+        # oracle path only — never the accelerator performance path).
         import jax
 
         solve = self.solve_host_transpose if transpose else self.solve_host

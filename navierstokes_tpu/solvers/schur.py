@@ -10,7 +10,7 @@ ordered u, v, w, p — `fem/elements.py::element_node_blocks`, re-expressing
 
 The coupled two-level preconditioner treats this indefinite operator with
 one aggregation coarse grid; its iteration counts grow with N (74 -> 253
-over 117k -> 2.35M rows, benchlogs/transient_scaling.txt) because a fixed
+over 117k -> 2.35M rows) because a fixed
 coarse space cannot capture the pressure's global coupling.  The classic
 physics-aware cure (SIMPLE / pressure-Schur family: Patankar's SIMPLE,
 Elman-Silvester-Wathen ch. 9) is a block-triangular preconditioner
@@ -31,11 +31,11 @@ inverse of its 3x3 node-diagonal blocks: S_hat = D + B diag(F)^{-1} B^T —
 banded (node offsets of B doubled by the product), assembled on the host
 once per operator preparation.
 
-Everything here is TPU-first plumbing around that algebra:
+Everything here is accelerator plumbing around that algebra:
 
   * Sub-block applies (F: 3x3 planes, -B: 1x3, B^T: 3x1, S_hat: 1x1 with
-    doubled offsets) all ride the generic windowed plane kernel
-    (`ops.plane_dia.spmv_planes_pallas`), paying HBM only for the planes
+    doubled offsets) all ride the generic plane SpMV
+    (`ops.plane_dia.spmv_planes`), paying memory traffic only for the planes
     they touch — F+B+S_hat per apply move ~(9+3+2)/16 of the full
     operator's bytes.
   * Both sub-solves are two-grid cycles: a dense aggregation coarse

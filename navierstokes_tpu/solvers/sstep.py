@@ -22,8 +22,8 @@ exchange, the dots/AXPYs of modified Gram-Schmidt collapse into one QR and
 the s SpMVs into one matrix-powers sweep — the communication-avoiding axis
 the reference explores (BASELINE.md "SpM2V / 2SpMV" configs).
 
-NEWTON BASIS (`shifts`): the monomial stall in f32 (measured at 117k rows —
-benchlogs/ca_gmres.txt: every basis length 6-16 stalls short of tolerance)
+NEWTON BASIS (`shifts`): the monomial stall in f32 (measured at 117k rows:
+every basis length 6-16 stalls short of tolerance)
 is the textbook basis-conditioning failure, and the textbook fix (Bai/Hu/
 Reichel; Hoemmen's thesis ch. 7) is the shifted product basis
 
@@ -37,8 +37,7 @@ squares) is unchanged.  Shifts are computed ONCE at operator-preparation
 time from a short Arnoldi sweep (`newton_shifts`, host eig + Leja order);
 complex Ritz pairs are reduced to their real parts to keep the recurrence
 (and the one-exchange matrix-powers kernel) in real arithmetic — a
-conditioning compromise vs the full conjugate-pair recurrence, measured
-before adoption (see benchlogs/ca_gmres.txt).
+conditioning compromise vs the full conjugate-pair recurrence.
 """
 
 from __future__ import annotations
@@ -191,7 +190,7 @@ def ca_gmres(
         if shifts is not None:
             S = S.at[jnp.arange(m), jnp.arange(m)].set(
                 jnp.asarray(shifts, dtype))
-        # HIGHEST: MXU default bf16 operand rounding would truncate the
+        # HIGHEST: reduced-precision (TF32) operand rounding would truncate the
         # Krylov recurrence / reconstruction (see solvers.gmres CGS2 note).
         hp = jax.lax.Precision.HIGHEST
         RS = jnp.matmul(R, S, precision=hp)                    # (m+1, m)

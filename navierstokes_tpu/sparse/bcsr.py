@@ -1,10 +1,10 @@
 """Block CSR with 4x4 blocks (BCSR4) — the host-side canonical sparse format.
 
-The TPU analog of the reference's `bcsr4x4_matrix` (`mpk/SpMV.h:25-33`) and of
-PETSc's `MATSEQBAIJ` with bs=4.  The sparsity pattern is static for a given
-mesh (one 4x4 block per adjacent node pair), so the pattern lives in numpy on
-the host while values are a device array of shape (nnzb, 4, 4) that gets
-recomputed each Newton iteration through a fixed scatter map.
+The device-side analog of the reference's `bcsr4x4_matrix` (`mpk/SpMV.h:25-33`)
+and of PETSc's `MATSEQBAIJ` with bs=4. The sparsity pattern is static for a
+given mesh (one 4x4 block per adjacent node pair), so the pattern lives in
+numpy on the host while values are a device array of shape (nnzb, 4, 4) that
+gets recomputed each Newton iteration through a fixed scatter map.
 """
 
 from __future__ import annotations

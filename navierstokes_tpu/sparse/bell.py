@@ -1,16 +1,17 @@
-"""Padded block-ELL — the on-device operator layout for TPU kernels.
+"""Padded block-ELL — a fixed-row-degree on-device operator layout.
 
 Every block-row stores exactly `slots` 4x4 blocks (the max row degree, padded
 with zero blocks pointing at the row's own diagonal so gathers stay local).
 Fixed row degree means static shapes, regular tiling, and no ragged pointer
-chasing — the TPU-first replacement for CSR/BCSR row pointers (SURVEY.md §7
-phase 3).  Layout:
+chasing — the static-shape replacement for CSR/BCSR row pointers
+(SURVEY.md §7 phase 3).  Layout:
 
   indices: (nb, slots)        int32 block-column of each slot
   values:  (nb, slots, 4, 4)  block values (zero in padding slots)
 
 With RCM node ordering the column span per row tile is bounded by the block
-bandwidth, which the Pallas kernels exploit via windowed x loads.
+bandwidth (`ops.spmv.spmv_bell_windowed` exploits it with windowed x
+loads).
 """
 
 from __future__ import annotations

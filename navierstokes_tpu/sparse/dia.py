@@ -1,10 +1,8 @@
-"""Scalar diagonal (DIA) storage — the TPU speed-of-light operator layout.
+"""Scalar diagonal (DIA) storage — the gather-free scalar operator layout.
 
-Measured on one v5e chip (121k-row NS operator): block-ELL gather+einsum runs
-at ~12 GFLOP/s because TPU dynamic-gather serializes; this format reaches
-~234 GFLOP/s f32 / ~450 GFLOP/s bf16 — HBM-bandwidth-bound — because SpMV
-becomes K unrolled fused multiply-adds over contiguous (ndof,) vectors with
-statically shifted slices: zero gathers, full lane utilization.
+SpMV in this format is K unrolled fused multiply-adds over contiguous
+(ndof,) vectors with statically shifted slices: zero gathers, coalesced
+streams, memory-bandwidth-bound (block-ELL needs a gather per block).
 
 Why it applies: after band (RCM / lexicographic) node ordering a FEM operator
 has few distinct column offsets.  The 4x4-blocked NS operator with block
@@ -16,7 +14,7 @@ update is a single fused scatter-add under jit.
 
 This replaces the role of the reference's hand-vectorized BCSR4 AVX2 kernels
 (`src/kernels/baij4_avx2.c`, `mpk/SpMV.cpp`) — same math, layout chosen for
-the VPU's (8, 128) lanes instead of 4-wide SIMD registers.
+wide vector streams instead of 4-wide SIMD registers.
 """
 
 from __future__ import annotations

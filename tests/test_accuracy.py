@@ -1,6 +1,6 @@
 """Accuracy regression: the f32 flagship config vs f64 ground truth.
 
-VERDICT round-2 item 6: the shipped f32 config (two_level agg=48,
+The shipped f32 config (two_level agg=48,
 du_tol=inf, Newton rtol 1e-4 — `run.py`) was validated only for speed;
 this pins its solution error against the f64 defaults (block-Jacobi,
 Newton rtol 1e-6) on a matrix-3 transient.  Measured drift (CPU, 10

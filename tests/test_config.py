@@ -1,6 +1,6 @@
 """Config resolution: the measured coarse-aggregate auto schedule.
 
-Pins the size->agg table (benchlogs/transient_scaling.txt post-fix sweeps)
+Pins the size->agg table (the swept per-size schedule)
 so the tuned per-size step times ARE what a default user gets (the runtime
 variant-dispatch discipline of the reference's
 `src/kernels/variant_selector.c:3-15`).
@@ -48,8 +48,8 @@ def test_resolve_fills_both_krylov_configs():
 
 
 def test_resolve_raises_dense_max_for_scheduled_agg():
-    # matrix 10: agg=256 -> nc=9176 > 4096; the tuned config is DENSE
-    # (transient_scaling.txt), so auto must lift dense_max to fit.
+    # matrix 10: agg=256 -> nc=9176 > 4096; the tuned config is DENSE,
+    # so auto must lift dense_max to fit.
     nv = 2_348_992 // 4
     r = resolve_coarse_defaults(NSConfig(), nv)
     agg = r.krylov.coarse_agg
@@ -157,7 +157,7 @@ def test_resolve_auto_degrades_off_the_eager_path():
     assert r.krylov.preconditioner == "two_level"
     assert r.krylov.coarse_cheby == 0
     # Schur tier additionally needs spmv='plane' / no deflation / 1 chip.
-    for bad in (dict(spmv="pallas"), dict(deflation_k=8)):
+    for bad in (dict(spmv="xla"), dict(deflation_k=8)):
         r = resolve_coarse_defaults(_auto_cfg(**bad), 511_024 // 4)
         assert r.krylov.preconditioner == "two_level", bad
     r = resolve_coarse_defaults(_auto_cfg(), 511_024 // 4, single_chip=False)

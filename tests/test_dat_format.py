@@ -57,8 +57,7 @@ def test_spmv_variant_selector():
     dia = dia_from_bcsr(op)
     x = jnp.asarray(np.random.default_rng(1).standard_normal(disc.ndof))
     y_ref = np.asarray(make_spmv("oracle", bcsr=op)(x))
-    for variant in ("ell", "dia", "pallas_dia"):
-        # pallas_dia auto-interprets off-TPU (tests run on CPU).
+    for variant in ("ell", "dia", "plane"):
         y = np.asarray(make_spmv(variant, bcsr=op, ell=ell, dia=dia)(x))
         np.testing.assert_allclose(y, y_ref, rtol=1e-11, atol=1e-12,
                                    err_msg=variant)

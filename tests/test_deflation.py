@@ -1,7 +1,7 @@
 """Krylov subspace recycling (solvers/deflation.py): algebra + end-to-end.
 
 The reference suppresses iteration counts with ILU(4)
-(`src/solve_newton.c:1154-1164`); the TPU design recycles a harmonic-Ritz
+(`src/solve_newton.c:1154-1164`); this design recycles a harmonic-Ritz
 subspace of the constant preconditioned operator instead.  These tests pin
 the algebraic identities (Arnoldi relation, T U = Q, exact recycled
 correction) and the solver-level contract (same solution, converged).
@@ -113,7 +113,7 @@ def test_deflated_solver_matches_undeflated(spmv):
 
 def test_deflation_reduces_iterations():
     """On the small operator the recycled space must not INCREASE the
-    iteration count (the measured-win criterion lives in benchlogs; this
+    iteration count (whether it wins at scale is a benchmark question; this
     guards the implementation-level contract)."""
     mesh = channel_mesh(8, 3, 3, length=4.0)
     u0 = None

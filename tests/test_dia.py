@@ -81,62 +81,6 @@ def test_block_diag_to_dia(fem_op):
     )
 
 
-def test_pallas_dia_kernel_interpret(fem_op):
-    """Pallas DIA kernel (interpret mode on CPU) matches the XLA path."""
-    from navierstokes_tpu.ops.pallas_dia import spmv_dia_pallas
-
-    disc, op = fem_op
-    dia = dia_from_bcsr(op)
-    data32 = dia.data.astype(jnp.float32)
-    rng = np.random.default_rng(4)
-    x = jnp.asarray(rng.standard_normal(disc.ndof), dtype=jnp.float32)
-    y_ref = spmv_dia(dia.offsets, data32, x)
-    for tile in (128, 256):
-        y = spmv_dia_pallas(dia.offsets, data32, x, tile=tile, interpret=True)
-        rel = np.linalg.norm(np.asarray(y) - np.asarray(y_ref)) / (
-            np.linalg.norm(np.asarray(y_ref))
-        )
-        assert rel < 1e-6, f"tile={tile} rel err {rel}"
-
-
-def test_pallas_dia_windowed_interpret(fem_op):
-    """Double-buffered windowed variant (x in HBM, per-tile DMA windows)
-    matches the XLA path, including odd/even and single-tile grids."""
-    from navierstokes_tpu.ops.pallas_dia import spmv_dia_pallas
-
-    disc, op = fem_op
-    dia = dia_from_bcsr(op)
-    data32 = dia.data.astype(jnp.float32)
-    rng = np.random.default_rng(5)
-    x = jnp.asarray(rng.standard_normal(disc.ndof), dtype=jnp.float32)
-    y_ref = spmv_dia(dia.offsets, data32, x)
-    from navierstokes_tpu.ops.pallas_dia import pretile_dia
-
-    for tile in (128, 256, 1024):   # odd, even, and grid==1 tile counts
-        for pretiled in (False, True):
-            data_in = (
-                pretile_dia(data32, disc.ndof, tile=tile)
-                if pretiled else data32
-            )
-            y = spmv_dia_pallas(
-                dia.offsets, data_in, x, tile=tile, interpret=True,
-                windowed=True, n=disc.ndof,
-            )
-            rel = np.linalg.norm(np.asarray(y) - np.asarray(y_ref)) / (
-                np.linalg.norm(np.asarray(y_ref))
-            )
-            assert rel < 1e-6, f"tile={tile} pretiled={pretiled} rel {rel}"
-
-    # bf16 operator + f32 x (mixed-precision matvec_dtype mode)
-    d3_bf16 = pretile_dia(data32.astype(jnp.bfloat16), disc.ndof, tile=256)
-    y = spmv_dia_pallas(dia.offsets, d3_bf16, x, interpret=True,
-                        windowed=True, n=disc.ndof)
-    assert y.dtype == x.dtype
-    rel = np.linalg.norm(np.asarray(y) - np.asarray(y_ref)) / (
-        np.linalg.norm(np.asarray(y_ref))
-    )
-    assert rel < 2e-2, f"bf16 pretiled rel {rel}"
-
 
 def test_dia_overlapping_scalar_diagonals():
     """Block deltas d1 != d2 can share a scalar diagonal (4*d1+e1 == 4*d2+e2);
@@ -151,35 +95,3 @@ def test_dia_overlapping_scalar_diagonals():
     dia = dia_from_bcsr(m)
     np.testing.assert_allclose(dia.to_dense(), m.to_dense(), rtol=1e-13,
                                atol=1e-14)
-
-
-def test_model_pretile_dispatch(fem_op):
-    """spmv='pallas' pre-tiles the prepared operator to (grid, K, tile) and
-    _spmv dispatches 3-D data through the windowed kernel (interpret on CPU),
-    matching the XLA row-major path."""
-    import dataclasses
-
-    from navierstokes_tpu.config import NSConfig, SolverConfig
-    from navierstokes_tpu.mesh.box import channel_mesh
-    from navierstokes_tpu.model import NavierStokesSolver
-
-    mesh = channel_mesh(6, 2, 2, length=3.0)
-    cfg = NSConfig(dt=0.01, reynolds=100.0, delta=0.1, dtype="float32",
-                   krylov=SolverConfig(spmv="pallas"))
-    solver = NavierStokesSolver(mesh, cfg)
-    tag, s_off, s_data, i_off, i_data = solver._exact_prep
-    assert s_data.ndim == 3, "prepared operator should be pre-tiled"
-
-    cfg2 = dataclasses.replace(
-        cfg, krylov=dataclasses.replace(cfg.krylov, spmv="xla"))
-    solver2 = NavierStokesSolver(mesh, cfg2)
-    _, _, s2_data, _, _ = solver2._exact_prep
-    assert s2_data.ndim == 2
-
-    rng = np.random.default_rng(7)
-    x = jnp.asarray(rng.standard_normal(solver.disc.ndof), dtype=jnp.float32)
-    y3 = solver._spmv(s_off, s_data, x)
-    y2 = solver2._spmv(s_off, s2_data, x)
-    rel = np.linalg.norm(np.asarray(y3) - np.asarray(y2)) / np.linalg.norm(
-        np.asarray(y2))
-    assert rel < 1e-6, rel

@@ -1,16 +1,12 @@
 """Contract tests for the externally-checked driver artifacts.
 
-The round driver runs exactly two commands against this repo: `python
-bench.py` on the real chip (captured as BENCH_r*.json) and
-`dryrun_multichip(8)` (captured as MULTICHIP_r*.json).  Both have shipped
-broken once each (rounds 1-2) because nothing in the suite executed them.
-These tests run the same code paths end-to-end on CPU so a crash can never
-again reach a snapshot unexercised:
+Two entry points are run outside the test suite: `python bench.py` on the
+GPU and `dryrun_multichip(8)`.  These tests run the same code paths
+end-to-end on CPU so a crash cannot reach a run unexercised:
 
-- `bench.py --smoke --cpu` drives EVERY benchmarked kernel path (XLA DIA,
-  pre-tiled Pallas DIA, plane-major Pallas, block-ELL) plus the flagship
-  solver step on a tiny mesh, and must print one parseable JSON line with
-  the full field contract.
+- `bench.py --smoke --cpu` drives EVERY benchmarked SpMV path (XLA DIA,
+  plane-major, block-ELL) plus the flagship solver step on a tiny mesh,
+  and must print one parseable JSON line with the full field contract.
 - `__graft_entry__.dryrun_multichip(8)` runs in-process on the 8 virtual
   CPU devices the conftest provides; `entry()` must trace/lower.
 """
@@ -26,7 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 REQUIRED_FIELDS = {
     "metric", "value", "unit", "vs_baseline",
-    "step_ms_121k", "newton_iters", "lin_iters",
+    "step_ms_121k", "newton_iters", "lin_iters", "device",
 }
 
 

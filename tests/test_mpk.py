@@ -49,57 +49,6 @@ def test_matrix_power_vs_chained(system, k):
     assert rel < 1e-12
 
 
-@pytest.mark.parametrize("tile", [128, 256])
-def test_spm2v_fused_vs_chained(system, tile):
-    """Fused single-sweep A^2x == two chained SpMVs (`mpk/SpM2V.cpp` analog),
-    interpret-mode Pallas on CPU, multiple tile/grid shapes."""
-    from navierstokes_tpu.ops.mpk_pallas import (
-        pretile_dia_overlap,
-        spm2v_dia_pallas,
-    )
-
-    disc, op, dia = system
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(rng.standard_normal(disc.ndof))
-    z_ref = spmv_dia(dia.offsets, dia.data,
-                     spmv_dia(dia.offsets, dia.data, x))
-    dov = pretile_dia_overlap(dia.data, disc.ndof, tile=tile,
-                              offsets=dia.offsets)
-    z = spm2v_dia_pallas(dia.offsets, dov, x, n=disc.ndof, tile=tile)
-    rel = np.linalg.norm(np.asarray(z) - np.asarray(z_ref)) / (
-        np.linalg.norm(np.asarray(z_ref))
-    )
-    assert rel < 1e-12, rel
-
-
-@pytest.mark.parametrize("power", [3, 4])
-@pytest.mark.parametrize("tile", [128, 256])
-def test_spmpv_fused_vs_chained(system, power, tile):
-    """Fused single-sweep A^3x / A^4x == chained SpMVs (the reference's
-    SpM3V/SpM4V, `mpk/SpMVmulti0.cpp:132-155,191-221`): the generalized
-    ghost-overlap kernel with halo (power-1)*h, interpret mode on CPU."""
-    from navierstokes_tpu.ops.mpk_pallas import (
-        pretile_dia_overlap,
-        spmpv_dia_pallas,
-    )
-
-    disc, op, dia = system
-    rng = np.random.default_rng(4)
-    x = jnp.asarray(rng.standard_normal(disc.ndof))
-    z_ref = x
-    for _ in range(power):
-        z_ref = spmv_dia(dia.offsets, dia.data, z_ref)
-    h = max(max(abs(d) for d in dia.offsets), 1)
-    dov = pretile_dia_overlap(dia.data, disc.ndof, tile=tile,
-                              halo=(power - 1) * h)
-    z = spmpv_dia_pallas(dia.offsets, dov, x, n=disc.ndof, power=power,
-                         tile=tile)
-    rel = np.linalg.norm(np.asarray(z) - np.asarray(z_ref)) / (
-        np.linalg.norm(np.asarray(z_ref))
-    )
-    assert rel < 1e-12, rel
-
-
 def test_matrix_powers_all(system):
     disc, op, dia = system
     rng = np.random.default_rng(1)

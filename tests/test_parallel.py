@@ -257,73 +257,106 @@ def test_distributed_solver_ca_gmres_method():
     assert err < 1e-6, f"distributed ca_gmres drift {err}"
 
 
-def test_partitioned_pretiled_and_plane_spmv_match(device_mesh,
-                                                   banded_operator):
-    """Per-shard FLAGSHIP kernels == single-chip XLA DIA: the pre-tiled
-    windowed Pallas kernel and the component-plane kernel, each behind one
-    ppermute halo exchange (round-4 closure of the kernel-injection seam —
-    the reference injects AVX2 into every operator it owns,
-    `src/solve_newton.c:864-879`)."""
-    from navierstokes_tpu.ops.pallas_dia import pretile_dia
+def _plane_spmv_check(devices, disc, op, rtol):
+    """partitioned_spmv_plane on `devices` (whole aggregates and at least
+    one halo per device) == the single-device scalar-DIA product."""
     from navierstokes_tpu.ops.plane_dia import (
         extract_planes,
         from_planes,
         node_offsets_from_scalar,
-        pretile_planes,
+        plane_halo,
         to_planes,
     )
     from navierstokes_tpu.ops.spmv import spmv_dia
-    from navierstokes_tpu.parallel.partitioned import (
-        partitioned_spmv_dia_pretiled,
-        partitioned_spmv_plane,
+    from navierstokes_tpu.parallel.partitioned import partitioned_spmv_plane
+    from navierstokes_tpu.sparse.dia import dia_from_bcsr
+
+    dia = dia_from_bcsr(op)
+    n = disc.ndof
+    nb = n // 4
+    ndev = len(devices)
+    x = jnp.asarray(np.random.default_rng(11).standard_normal(n))
+    y_ref = spmv_dia(dia.offsets, dia.data, x)
+
+    noffs = node_offsets_from_scalar(dia.offsets)
+    agg = 4
+    Lb = -(-max(-(-nb // ndev), plane_halo(noffs)) // agg) * agg
+    nbp = ndev * Lb
+    planes = extract_planes(dia.offsets, dia.data, nb, node_offsets=noffs,
+                            nbp=nbp)
+    dmesh = DeviceMesh(np.array(devices), ("x",))
+    y_pl = from_planes(
+        partitioned_spmv_plane(dmesh, "x", noffs, planes,
+                               to_planes(x, nb, nbp), ndev),
+        nb, nbp,
     )
+    np.testing.assert_allclose(np.asarray(y_pl), np.asarray(y_ref),
+                               rtol=rtol, atol=rtol)
+
+
+def test_partitioned_pretiled_and_plane_spmv_match(device_mesh,
+                                                   banded_operator):
+    """Per-shard SpMVs == single-chip XLA DIA: the scalar-DIA shifted
+    multiply-adds and the component-plane SpMV, each behind one ppermute
+    halo exchange (the kernel-injection seam — the reference injects AVX2
+    into every operator it owns, `src/solve_newton.c:864-879`)."""
+    from navierstokes_tpu.ops.spmv import spmv_dia
+    from navierstokes_tpu.parallel.partitioned import partitioned_spmv_dia
     from navierstokes_tpu.sparse.dia import dia_from_bcsr
 
     disc, op = banded_operator
     dia = dia_from_bcsr(op)
     n = disc.ndof
-    granule = 512                      # 4 KB DMA granule in f64 elements
     rng = np.random.default_rng(11)
     x = jnp.asarray(rng.standard_normal(n))
     y_ref = spmv_dia(dia.offsets, dia.data, x)
 
-    # scalar pre-tiled: whole tiles per device
-    L = -(-max(-(-n // N_DEV), dia.halo) // granule) * granule
+    L = max(-(-n // N_DEV), dia.halo)
     n_pad = N_DEV * L
-    d3 = pretile_dia(jnp.pad(dia.data, ((0, 0), (0, n_pad - n))), n_pad,
-                     tile=granule)
-    y = partitioned_spmv_dia_pretiled(
-        device_mesh, "x", dia.offsets, d3, jnp.pad(x, (0, n_pad - n)), N_DEV
+    y = partitioned_spmv_dia(
+        device_mesh, "x", dia.offsets,
+        jnp.pad(dia.data, ((0, 0), (0, n_pad - n))),
+        jnp.pad(x, (0, n_pad - n)), N_DEV,
     )
     np.testing.assert_allclose(np.asarray(y[:n]), np.asarray(y_ref),
                                rtol=1e-13, atol=1e-13)
+    _plane_spmv_check(jax.devices()[:N_DEV], disc, op, 1e-13)
 
-    # component-plane: whole node tiles per device, per-plane halo exchange
-    nb = n // 4
-    noffs = node_offsets_from_scalar(dia.offsets)
-    hn = max(max(abs(d) for d in noffs), 1)
-    Lb = -(-max(-(-nb // N_DEV), hn) // granule) * granule
-    nbp = N_DEV * Lb
-    p4 = pretile_planes(
-        extract_planes(dia.offsets, dia.data, nb, node_offsets=noffs),
-        nb, tile=granule, nbp=nbp,
+
+@pytest.mark.parametrize("ndev", [2, 4, 8])
+def test_partitioned_plane_spmv_device_counts(banded_operator, ndev):
+    """The distributed plane SpMV == single device on 2, 4 and 8 virtual
+    devices (one, a few and many halo neighbours per shard)."""
+    disc, op = banded_operator
+    _plane_spmv_check(jax.devices()[:ndev], disc, op, 1e-13)
+
+
+@pytest.mark.parametrize("ndev", [2, 4, 8])
+def test_distributed_plane_layout(ndev):
+    """Distributed plane layout: equal node counts per device, whole
+    aggregates per device, at least one halo per device, minimal padding."""
+    kr = SolverConfig(preconditioner="two_level", coarse_agg=4,
+                      spmv="plane")
+    cfg = NSConfig(dtype="float64", krylov=kr, stokes_krylov=kr)
+    dist, _ = DistributedNavierStokesSolver.from_mesh(
+        channel_mesh(48, 2, 2, length=8.0), cfg, devices=jax.devices()[:ndev]
     )
-    y_pl = from_planes(
-        partitioned_spmv_plane(device_mesh, "x", noffs, p4,
-                               to_planes(x, nb, nbp), N_DEV),
-        nb, nbp,
-    )
-    np.testing.assert_allclose(np.asarray(y_pl), np.asarray(y_ref),
-                               rtol=1e-13, atol=1e-13)
+    noffs = (-9, -1, 0, 1, 9)
+    nb = dist.disc.mesh.nv
+    nbp = dist._plane_layout(nb, noffs)
+    Lb = nbp // ndev
+    assert nbp % ndev == 0 and Lb % 4 == 0 and Lb >= 9
+    assert nbp >= nb and Lb - 4 < max(-(-nb // ndev), 9)
+    assert dist.shard_kernel_name() == "plane_xla"
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("spmv,kernel", [("pallas", "pretiled_pallas"),
-                                         ("plane", "plane_pallas")])
+@pytest.mark.parametrize("spmv,kernel", [("xla", "dia_xla"),
+                                         ("plane", "plane_xla")])
 def test_distributed_flagship_kernels_match_single_chip(spmv, kernel):
-    """Full distributed transient step with the per-shard flagship kernels
-    (pre-tiled Pallas scalar-DIA / component-plane) == single chip, and the
-    external contract names the shard kernel (dryrun prints it)."""
+    """Full distributed transient step with the per-shard SpMVs (scalar-DIA
+    / component-plane) == single chip, and the external contract names the
+    shard SpMV (dryrun prints it)."""
     import dataclasses
 
     kr = SolverConfig(rtol=1e-12, atol=1e-13, maxiter=4000,
@@ -351,72 +384,18 @@ def test_distributed_flagship_kernels_match_single_chip(spmv, kernel):
 
 @pytest.mark.slow
 def test_flagship_kernels_multitile_shards(device_mesh):
-    """Per-shard flagship kernels at a realistic shape where rows-per-device
-    spans SEVERAL kernel tiles (VERDICT r4 weak #5: the tiny meshes above
-    give every device a single tile, so cross-tile halo windows and the
-    multi-tile grid loop never executed under shard_map).  A ~10k-node
-    channel with tile=512 gives 3 node-tiles per device with real data in
-    every tile of six of the eight shards."""
-    from navierstokes_tpu.ops.pallas_dia import pretile_dia
-    from navierstokes_tpu.ops.plane_dia import (
-        extract_planes,
-        from_planes,
-        node_offsets_from_scalar,
-        pretile_planes,
-        to_planes,
-    )
-    from navierstokes_tpu.ops.spmv import spmv_dia
-    from navierstokes_tpu.parallel.partitioned import (
-        partitioned_spmv_dia_pretiled,
-        partitioned_spmv_plane,
-    )
-    from navierstokes_tpu.sparse.dia import dia_from_bcsr
-
+    """Per-shard plane SpMV at a realistic shape: a ~10k-node channel gives
+    every device ~1232 nodes, far wider than the node halo, so interior
+    and edge shards both carry real data."""
     mesh = channel_mesh(200, 6, 6, length=16.0)   # 9849 nodes, 39396 DoF
     disc = build_discretization(mesh, dtype=jnp.float64)
     op = assemble_operator(disc, jnp.zeros(disc.ndof), 0.01, 50.0, 0.1,
                            LINEAR_TERMS)
-    dia = dia_from_bcsr(BCSR4(indptr=op.indptr, indices=op.indices,
-                              values=zero_rows_bcsr(
-                                  op.values, disc.row_ids,
-                                  jnp.asarray(disc.indices), disc.diag_slots,
-                                  disc.bc.row_bc)))
-    n = disc.ndof
-    granule = 512                      # 4 KB DMA granule in f64 elements
-    rng = np.random.default_rng(7)
-    x = jnp.asarray(rng.standard_normal(n))
-    y_ref = spmv_dia(dia.offsets, dia.data, x)
-
-    # scalar pre-tiled: rows/dev = 4928 -> L = 5120 = 10 tiles of 512
-    L = -(-max(-(-n // N_DEV), dia.halo) // granule) * granule
-    assert L // granule >= 2, "shape regression: shards must be multi-tile"
-    n_pad = N_DEV * L
-    d3 = pretile_dia(jnp.pad(dia.data, ((0, 0), (0, n_pad - n))), n_pad,
-                     tile=granule)
-    y = partitioned_spmv_dia_pretiled(
-        device_mesh, "x", dia.offsets, d3, jnp.pad(x, (0, n_pad - n)), N_DEV
-    )
-    np.testing.assert_allclose(np.asarray(y[:n]), np.asarray(y_ref),
-                               rtol=1e-12, atol=1e-12)
-
-    # component-plane: nodes/dev = 1232 -> Lb = 1536 = 3 node-tiles of 512
-    nb = n // 4
-    noffs = node_offsets_from_scalar(dia.offsets)
-    hn = max(max(abs(d) for d in noffs), 1)
-    Lb = -(-max(-(-nb // N_DEV), hn) // granule) * granule
-    assert Lb // granule >= 2, "shape regression: shards must be multi-tile"
-    nbp = N_DEV * Lb
-    p4 = pretile_planes(
-        extract_planes(dia.offsets, dia.data, nb, node_offsets=noffs),
-        nb, tile=granule, nbp=nbp,
-    )
-    y_pl = from_planes(
-        partitioned_spmv_plane(device_mesh, "x", noffs, p4,
-                               to_planes(x, nb, nbp), N_DEV),
-        nb, nbp,
-    )
-    np.testing.assert_allclose(np.asarray(y_pl), np.asarray(y_ref),
-                               rtol=1e-12, atol=1e-12)
+    op = BCSR4(indptr=op.indptr, indices=op.indices,
+               values=zero_rows_bcsr(
+                   op.values, disc.row_ids, jnp.asarray(disc.indices),
+                   disc.diag_slots, disc.bc.row_bc))
+    _plane_spmv_check(jax.devices()[:N_DEV], disc, op, 1e-12)
 
 
 def test_partition_rejects_wide_band(device_mesh):
@@ -519,6 +498,35 @@ def test_partitioned_assembly_matches_global():
         np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
 
 
+def test_partitioned_assembly_chunked_matches_global():
+    """The chunked per-shard element loop (taken when a device owns more
+    elements than one chunk, as at m6 on four devices) == global assembly."""
+    import jax.numpy as jnp
+
+    from navierstokes_tpu.fem.assembly import LINEAR_TERMS
+    from navierstokes_tpu.parallel.partitioned import (
+        partitioned_assemble_dia,
+    )
+
+    cfg = NSConfig(dt=0.01, reynolds=100.0, delta=0.1, dtype="float64")
+    mesh = channel_mesh(12, 2, 2, length=6.0)
+    single = NavierStokesSolver(mesh, cfg)
+    dist, _ = DistributedNavierStokesSolver.from_mesh(
+        mesh, cfg, devices=jax.devices()[:4]
+    )
+    ep, arr = dist._ensure_epart(), dist._ep_arrays
+    assert ep.e_max > 16, ep.e_max
+    UL = jnp.zeros((single.disc.ne, 3, 4))
+    got = partitioned_assemble_dia(
+        ep, dist.device_mesh, dist.axis, arr["ep_grad"], arr["ep_vol"],
+        arr["ep_h"], UL[arr["ep_perm"]], arr["ep_map"], cfg.dt,
+        cfg.reynolds, cfg.delta, terms=LINEAR_TERMS, chunk=16,
+    )[:, : single.disc.ndof]
+    ref = single._assemble_dia(UL, LINEAR_TERMS)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                               rtol=1e-12, atol=1e-12)
+
+
 def test_multilevel_coarse_smooth_cycles():
     """Stronger multilevel coarse cycles (extra smoothing sweeps / cycles)
     converge to the same solution with no more outer iterations, on one
@@ -559,40 +567,3 @@ def test_multilevel_coarse_smooth_cycles():
         np.linalg.norm(np.asarray(u_single))
     )
     assert err < 1e-8, f"multilevel multi-chip vs single-chip error {err}"
-
-
-def test_distributed_cgs2_degrades_with_warning():
-    """cgs2='pallas' is single-chip only: the distributed solver must warn
-    and fall back to the XLA orthogonalization (never engage the kernel,
-    whose per-shard V windows are not halo-aware), still converging to the
-    single-chip answer."""
-    import dataclasses
-    import warnings
-
-    kr = SolverConfig(rtol=1e-12, atol=1e-13, maxiter=4000,
-                      preconditioner="two_level", coarse_agg=4,
-                      spmv="plane", cgs2="pallas")
-    cfg = NSConfig(
-        dt=0.01, t_final=0.01, reynolds=100.0, delta=0.1, dtype="float64",
-        krylov=kr, stokes_krylov=dataclasses.replace(kr, rtol=1e-13),
-    )
-    mesh = channel_mesh(12, 2, 2, length=6.0)
-    u_single = NavierStokesSolver(
-        mesh, dataclasses.replace(
-            cfg, krylov=dataclasses.replace(kr, cgs2="xla"),
-            stokes_krylov=dataclasses.replace(kr, rtol=1e-13, cgs2="xla"),
-        )
-    ).run(1, monitor=False)
-
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        dist, _ = DistributedNavierStokesSolver.from_mesh(
-            mesh, cfg, devices=jax.devices()[:N_DEV]
-        )
-    assert any("cgs2" in str(w.message) for w in rec), \
-        [str(w.message) for w in rec]
-    u_dist = dist.run(1, monitor=False)
-    err = np.linalg.norm(np.asarray(u_dist) - np.asarray(u_single)) / (
-        np.linalg.norm(np.asarray(u_single))
-    )
-    assert err < 1e-8, f"distributed cgs2-degrade vs single-chip error {err}"

@@ -1,7 +1,7 @@
 """Newton-basis (Leja-shifted) CA-GMRES (solvers/sstep.py).
 
 The monomial s-step basis conditions like kappa(A)^m and stalls in f32
-(measured on the chip at 117k rows, benchlogs/ca_gmres.txt); the Newton
+(measured at 117k rows: every basis length 6-16 stalls); the Newton
 basis is the textbook fix.  Pinned here at three levels: the Leja ordering
 itself, a synthetic f32 stall the shifts demonstrably cure, the shifted
 one-exchange matrix-powers kernel, and the model-level ca_basis='newton'
@@ -47,8 +47,8 @@ def test_newton_shifts_from_hessenberg():
 def test_newton_basis_cures_f32_monomial_stall():
     """Wide-spectrum SPD diagonal in f32: the monomial basis at m=12 stalls
     (normalized powers align, QR goes numerically rank-deficient), the
-    Leja-shifted Newton basis converges.  This is the 117k-row chip failure
-    (benchlogs/ca_gmres.txt) in miniature."""
+    Leja-shifted Newton basis converges.  This is the 117k-row f32 stall
+    in miniature."""
     n, m = 2048, 12
     # kappa = 1e3: standard GMRES(12) needs ~310 iterations here; the
     # Newton basis matches it (~312, measured) while the monomial basis
